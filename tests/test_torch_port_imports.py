@@ -1,0 +1,92 @@
+"""The PyTorch port stands alone: it imports nothing of JAX or texocr_tpu, and
+its serving path and chip_smoke.py need neither PIL, PyYAML nor regex."""
+
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_DIR = os.path.join(REPO, "texocr_tpu_torch")
+
+_CHILD = textwrap.dedent(
+    """
+    import importlib, importlib.util, pkgutil, sys
+
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "texocr_tpu",
+               "PIL", "yaml", "regex"}
+
+    class Blocker:
+        # Compares the exact top-level name: texocr_tpu_torch starts with
+        # texocr_tpu and must not be blocked.
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import: {name}")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import numpy as np
+    import torch
+    import texocr_tpu_torch
+
+    names = [m.name for m in pkgutil.walk_packages(texocr_tpu_torch.__path__,
+                                                   "texocr_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)  # defines main() without running it
+    assert callable(smoke.main)
+
+    # The serving path on a uint8 array touches none of the blocked modules.
+    from texocr_tpu_torch.serving import TexOCR
+    from texocr_tpu_torch.tokenizer import DEFAULT_VOCAB_PATH
+
+    config = {
+        "tokenizer_path": DEFAULT_VOCAB_PATH, "img_size": (32, 64), "patch_size": 16,
+        "glu": True, "bos_token": 998, "eos_token": 997, "trg_pad_idx": 999,
+        "dtype": "float32",
+        "encoder": {"n_channels": 1, "embed_dim": 32, "num_layers": 1, "heads": 2,
+                    "resnet_depths": (1, 1, 1), "resnet_channels": (128, 128, 128),
+                    "stem_channels": 32},
+        "decoder": {"embed_dim": 32, "num_layers": 1, "heads": 2, "exp_factor": 4},
+    }
+    ids, latex = TexOCR(config, device="cpu")(np.full((20, 40), 255, np.uint8), max_len=3)
+    assert isinstance(latex, str)
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("imported", len(names), "modules")
+    """
+)
+
+
+def test_port_and_chip_smoke_import_with_jax_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[1])
+    assert n_modules >= 15, proc.stdout
+
+
+def test_no_jax_or_reference_imports_in_port_sources():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|texocr_tpu)(\.|\s|$)",
+        re.MULTILINE,
+    )
+    offenders = []
+    for root, _, files in os.walk(PORT_DIR):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(root, name)
+                with open(path) as f:
+                    if pattern.search(f.read()):
+                        offenders.append(os.path.relpath(path, REPO))
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        if pattern.search(f.read()):
+            offenders.append("chip_smoke.py")
+    assert not offenders, offenders

@@ -1,0 +1,123 @@
+"""Weights across: reference state dicts in, JAX parameter trees converted.
+
+The port's modules carry the reference PyTorch model's names, so a reference
+``.pth`` (or the committed ``.npz`` golden state) loads into ``OCRModel`` with
+``strict=True`` as it is. ``state_dict_from_jax`` converts a JAX parameter tree
+(``texocr_tpu``'s flax layout, as numpy arrays) into those keys: the inverse of
+``texocr_tpu.checkpoint.torch_shim.convert_torch_state_dict``. Dense kernels go
+from (in, out) to (out, in), conv kernels from HWIO to OIHW, and the shared
+LayerNorm and the ``block``/``block_list`` duplicates are written at every key
+the reference has.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+
+POS_EMBED_KEY = "decoder.net.pos_embedding.embedding.weight"
+
+
+def _linear(w) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(w).T)
+
+
+def _conv(w) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (3, 2, 0, 1)))
+
+
+def _norm(out: dict, prefix: str, p: dict) -> None:
+    out[f"{prefix}.weight"] = np.asarray(p["scale"])
+    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _indexed(tree: dict, name: str) -> int:
+    """How many ``{name}_{i}`` / ``{name}{i}`` entries ``tree`` has."""
+    pat = re.compile(rf"{name}_?(\d+)$")
+    return len([k for k in tree if pat.match(k)])
+
+
+def _mha(out: dict, prefix: str, p: dict) -> None:
+    for name in ("q", "k", "v"):
+        out[f"{prefix}.{name}.weight"] = _linear(p[name]["kernel"])
+    out[f"{prefix}.fc_out.0.weight"] = _linear(p["fc_out"]["kernel"])
+    out[f"{prefix}.fc_out.0.bias"] = np.asarray(p["fc_out"]["bias"])
+
+
+def _stack(out: dict, prefix: str, p: dict) -> None:
+    cross = _indexed(p, "cross_attns") > 0
+    n_layers = _indexed(p, "self_attns")
+    per = 3 if cross else 2
+    for j in range(n_layers * per):
+        _norm(out, f"{prefix}.layers.{j}.0", p["shared_norm"])
+    for layer in range(n_layers):
+        base = layer * per
+        _mha(out, f"{prefix}.layers.{base}.1", p[f"self_attns_{layer}"])
+        if cross:
+            _mha(out, f"{prefix}.layers.{base + 1}.1", p[f"cross_attns_{layer}"])
+        mlp = p[f"mlps_{layer}"]
+        mprefix = f"{prefix}.layers.{base + per - 1}.1"
+        fc_in = f"{mprefix}.fc_in.fc"
+        out[f"{fc_in}.weight"] = _linear(mlp["fc_in"]["kernel"])
+        out[f"{fc_in}.bias"] = np.asarray(mlp["fc_in"]["bias"])
+        out[f"{mprefix}.fc_out.weight"] = _linear(mlp["fc_out"]["kernel"])
+        out[f"{mprefix}.fc_out.bias"] = np.asarray(mlp["fc_out"]["bias"])
+
+
+def _bottleneck(out: dict, prefix: str, p: dict) -> None:
+    for alias in ("block_list", "block"):
+        for i, (conv, norm) in enumerate((("conv1", "norm1"), ("conv2", "norm2"),
+                                          ("conv3", "norm3"))):
+            out[f"{prefix}.{alias}.{2 * i}.weight"] = _conv(p[conv]["kernel"])
+            _norm(out, f"{prefix}.{alias}.{2 * i + 1}", p[norm])
+    if "proj_conv" in p:
+        out[f"{prefix}.downsample.conv.weight"] = _conv(p["proj_conv"]["kernel"])
+        _norm(out, f"{prefix}.downsample.norm", p["proj_norm"])
+
+
+def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``{'encoder': ..., 'decoder': ...}`` parameter tree (with or without
+    the top-level ``'params'`` key) -> reference-keyed float32 tensors. Both
+    stacks' MLPs are GeGLU (``fc_in.fc``)."""
+    params = params.get("params", params)
+    enc, dec = params["encoder"], params["decoder"]
+    out: Dict[str, np.ndarray] = {}
+    bb = enc["backbone"]
+    prefix = "encoder.patch_embed.backbone_net"
+    out[f"{prefix}.stem.0.weight"] = _conv(bb["stem_conv"]["kernel"])
+    _norm(out, f"{prefix}.stem.1", bb["stem_norm"])
+    for s in range(_indexed(bb, "stage")):
+        stage = bb[f"stage{s}"]
+        for i in range(_indexed(stage, "block")):
+            _bottleneck(out, f"{prefix}.stages.{s}.stage_blocks.{i}", stage[f"block{i}"])
+    proj = np.asarray(enc["proj"]["kernel"])  # (in, out)
+    out["encoder.patch_embed.proj.weight"] = np.ascontiguousarray(proj.T[:, :, None, None])
+    out["encoder.patch_embed.proj.bias"] = np.asarray(enc["proj"]["bias"])
+    out["encoder.cls_token"] = np.asarray(enc["cls_token"])
+    out["encoder.pos_embed"] = np.asarray(enc["pos_embed"])
+    _stack(out, "encoder.attn_layers", enc["attn_layers"])
+    _norm(out, "encoder.norm", enc["norm"])
+
+    out["decoder.net.token_embedding.weight"] = np.asarray(dec["token_embedding"]["embedding"])
+    out[POS_EMBED_KEY] = np.asarray(dec["pos_embedding"]["embedding"])
+    _stack(out, "decoder.net.attn_layers", dec["attn_layers"])
+    _norm(out, "decoder.net.norm", dec["norm"])
+    out["decoder.net.to_logits.weight"] = _linear(dec["to_logits"]["kernel"])
+    out["decoder.net.to_logits.bias"] = np.asarray(dec["to_logits"]["bias"])
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def load_state(path: str) -> Dict[str, torch.Tensor]:
+    """A reference state dict from a ``.pth``/``.pt`` file (a bare state dict
+    or the {'model_state_dict': ...} training blob) or an ``.npz``."""
+    path = str(path)
+    if path.endswith(".npz"):
+        with np.load(path) as data:
+            return {k: torch.from_numpy(data[k]) for k in data.files}
+    if path.endswith((".pth", ".pt")):
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        return dict(blob.get("model_state_dict", blob))
+    raise ValueError(f"unknown checkpoint format: {path} (expected .pth, .pt or .npz)")

@@ -1,0 +1,161 @@
+"""Configuration: the reference's config dict, validated into typed views.
+
+The same YAML/dict surface as ``texocr_tpu.config`` (runtime-injected
+``max_length`` and ``vocab_size`` included), with the port's defaults. The one
+difference: ``use_flash_attention: "auto"`` means "the model lives on a CUDA
+device", which ``resolve_flash`` decides once the device is known.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Union
+
+import torch
+
+_DEFAULTS: Dict[str, Any] = {
+    "dtype": "bfloat16",
+    "use_flash_attention": "auto",
+    "kv_quant": "none",
+    "self_kv_quant": "none",
+}
+
+#: The flagship architecture (the reference's config/config.yml widths): embed
+#: 256, 8 heads, 4 + 4 layers, ResNet depths (2, 4, 6), vocab 1000.
+FLAGSHIP: Dict[str, Any] = {
+    "patch_size": 16,
+    "glu": True,
+    "bos_token": 998,
+    "eos_token": 997,
+    "trg_pad_idx": 999,
+    "max_length": 512,
+    "vocab_size": 1000,
+    "dtype": "bfloat16",
+    "encoder": {
+        "n_channels": 1,
+        "embed_dim": 256,
+        "num_layers": 4,
+        "heads": 8,
+    },
+    "decoder": {
+        "embed_dim": 256,
+        "num_layers": 4,
+        "heads": 8,
+        "cross_attend": True,
+        "dropout": 0.1,
+        "exp_factor": 4,
+    },
+}
+
+
+def load_config(config_path: str) -> dict:
+    """Load a YAML configuration file into a plain dict."""
+    import yaml
+
+    with open(config_path, "r") as f:
+        return yaml.safe_load(f)
+
+
+def with_defaults(config: dict) -> dict:
+    """A copy of ``config`` with the port's defaults filled in."""
+    out = dict(_DEFAULTS)
+    out.update(config)
+    return out
+
+
+def resolve_flash(value: Union[bool, str, None], device: torch.device) -> bool:
+    """``use_flash_attention`` for a model on ``device``: "auto" (or None)
+    means the kernel on a CUDA device and the math path elsewhere."""
+    if value == "auto" or value is None:
+        return torch.device(device).type == "cuda"
+    return bool(value)
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    img_size: tuple  # (H, W) largest canvas
+    patch_size: int
+    n_channels: int
+    embed_dim: int
+    num_layers: int
+    heads: int
+    resnet_depths: tuple = (2, 4, 6)
+    resnet_channels: tuple = (256, 512, 1024)
+    stem_channels: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    vocab_size: int
+    max_length: int
+    embed_dim: int
+    num_layers: int
+    heads: int
+    exp_factor: int = 4
+    dropout: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    encoder: EncoderConfig
+    decoder: DecoderConfig
+    bos_token: int
+    eos_token: int
+    pad_token: int
+    dtype: str = "bfloat16"
+    use_flash_attention: Union[bool, str] = "auto"
+
+    @staticmethod
+    def from_dict(config: dict) -> "ModelConfig":
+        """Typed config from a reference-format dict."""
+        config = with_defaults(config)
+        for key in ("max_length", "vocab_size"):
+            if key not in config:
+                raise ValueError(
+                    f"'{key}' not present in config — it is injected at run time "
+                    "from the dataset or the tokenizer."
+                )
+        if config.get("encoder", {}).get("embed_layer", "hybrid") != "hybrid":
+            raise NotImplementedError(
+                "only the hybrid ResNet embed is ported (ROADMAP: PatchEmbedding)"
+            )
+        if not config.get("glu", True) or not config["decoder"].get("cross_attend", True):
+            raise NotImplementedError(
+                "only the cross-attending GeGLU decoder is ported (glu and cross_attend true)"
+            )
+        for key in ("kv_quant", "self_kv_quant"):
+            if config[key] != "none":
+                raise NotImplementedError(
+                    f"{key}={config[key]!r} is not ported yet (ROADMAP: int8 KV)"
+                )
+        enc_args = config["encoder"]
+        dec_args = config["decoder"]
+        encoder = EncoderConfig(
+            img_size=tuple(config.get("img_size", (160, 1008))),
+            patch_size=config["patch_size"],
+            n_channels=enc_args["n_channels"],
+            embed_dim=enc_args["embed_dim"],
+            num_layers=enc_args["num_layers"],
+            heads=enc_args["heads"],
+            resnet_depths=tuple(enc_args.get("resnet_depths", (2, 4, 6))),
+            resnet_channels=tuple(enc_args.get("resnet_channels", (256, 512, 1024))),
+            stem_channels=enc_args.get("stem_channels", 64),
+        )
+        decoder = DecoderConfig(
+            vocab_size=config["vocab_size"],
+            max_length=config["max_length"],
+            embed_dim=dec_args["embed_dim"],
+            num_layers=dec_args["num_layers"],
+            heads=dec_args["heads"],
+            exp_factor=dec_args.get("exp_factor", 4),
+            dropout=dec_args.get("dropout", 0.0),
+        )
+        return ModelConfig(
+            encoder=encoder,
+            decoder=decoder,
+            bos_token=config["bos_token"],
+            eos_token=config["eos_token"],
+            pad_token=config["trg_pad_idx"],
+            dtype=config["dtype"],
+            use_flash_attention=config["use_flash_attention"],
+        )

@@ -1,0 +1,175 @@
+"""Multi-head attention and the shared-norm attention stack.
+
+The reference's architecture, as the JAX package reproduces it:
+
+- q/k/v projections without bias to heads * 64, then ``fc_out`` (Dense to
+  2 * embed) and a GLU gate.
+- ONE LayerNorm instance shared by every pre-norm and inter-layer norm of a
+  stack, and a post-residual norm on every sub-layer but the last. The shared
+  norm is registered at ``layers.{j}.0`` for every j, which gives the
+  reference's state-dict keys.
+
+Decode cache: the JAX package splits its self-attention cache into a merged
+(B, H, dh, T) prefix and a per-chunk hot window because a per-step
+``dynamic_update_slice`` on the TPU costs a pass over the whole buffer. On the
+GPU an in-place write of one position is cheap, so the port keeps one plain
+(B, H, T, dh) buffer per layer, writes position t in place, and attends over
+positions 0..t. The numbers agree: the JAX softmax over ``[big | hot]`` with a
+-f32max fill is a softmax over exactly those t + 1 positions.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from texocr_tpu_torch.models.layers import MLP, TorchDense
+from texocr_tpu_torch.ops.attention_core import attention_core, math_attention
+
+#: Per-layer {"k", "v"} buffers, each (B, H, T, dh).
+KVCache = List[Dict[str, torch.Tensor]]
+
+
+def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    b, n, _ = x.shape
+    return x.view(b, n, heads, -1).transpose(1, 2)  # (B, H, N, dh), a view
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * d)
+
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, embed_dim: int, heads: int = 8, dim_head: int = 64,
+                 dtype: torch.dtype = torch.float32, use_flash: bool = False):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.scale = dim_head ** -0.5
+        self.use_flash = use_flash
+        self.q = TorchDense(embed_dim, inner, bias=False, dtype=dtype)
+        self.k = TorchDense(embed_dim, inner, bias=False, dtype=dtype)
+        self.v = TorchDense(embed_dim, inner, bias=False, dtype=dtype)
+        # nn.Sequential(Linear, GLU) in the reference: keys fc_out.0.*.
+        self.fc_out = nn.Sequential(TorchDense(inner, embed_dim * 2, dtype=dtype))
+
+    def project_kv(self, src: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return _split_heads(self.k(src), self.heads), _split_heads(self.v(src), self.heads)
+
+    def _finish(self, out_heads: torch.Tensor) -> torch.Tensor:
+        return F.glu(self.fc_out(_merge_heads(out_heads)), dim=-1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Unmasked self-attention over (B, N, D)."""
+        q = _split_heads(self.q(x), self.heads)
+        k, v = self.project_kv(x)
+        out = attention_core(q, k, v, scale=self.scale, use_flash=self.use_flash)
+        return self._finish(out)
+
+    def step(self, x_t: torch.Tensor, cache: Dict[str, torch.Tensor], t: int) -> torch.Tensor:
+        """Cached self-attention for the token at position ``t``: writes its
+        K/V into ``cache`` in place and attends over positions 0..t."""
+        q = _split_heads(self.q(x_t), self.heads)  # (B, H, 1, dh)
+        k, v = self.project_kv(x_t)
+        cache["k"][:, :, t] = k[:, :, 0]
+        cache["v"][:, :, t] = v[:, :, 0]
+        out = math_attention(q, cache["k"][:, :, : t + 1], cache["v"][:, :, : t + 1],
+                             scale=self.scale)
+        return self._finish(out)
+
+    def attend_cached_kv(self, x_t: torch.Tensor, kv: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Cross-attention step against K/V precomputed once per sequence."""
+        q = _split_heads(self.q(x_t), self.heads)
+        return self._finish(math_attention(q, kv["k"], kv["v"], scale=self.scale))
+
+
+class AttentionStack(nn.Module):
+    """(self[, cross], mlp) sub-layers with the shared LayerNorm and the
+    double-norm residual stream."""
+
+    def __init__(self, embed_dim: int, num_layers: int, heads: int = 8,
+                 dim_head: int = 64, cross_attend: bool = False,
+                 exp_factor: int = 4, dtype: torch.dtype = torch.float32,
+                 use_flash: bool = False):
+        super().__init__()
+        self.dtype = dtype
+        self.heads = heads
+        self.dim_head = dim_head
+        self.num_layers = num_layers
+        self.cross_attend = cross_attend
+        norm = nn.LayerNorm(embed_dim, eps=1e-5)
+        blocks = []
+        for _ in range(num_layers):
+            blocks.append(MultiHeadAttention(embed_dim, heads, dim_head, dtype, use_flash))
+            if cross_attend:
+                blocks.append(MultiHeadAttention(embed_dim, heads, dim_head, dtype, use_flash))
+            blocks.append(MLP(embed_dim, exp_factor, dtype))
+        self.layers = nn.ModuleList([nn.ModuleList([norm, block]) for block in blocks])
+
+    @property
+    def shared_norm(self) -> nn.LayerNorm:
+        return self.layers[0][0]
+
+    def _norm(self, x: torch.Tensor) -> torch.Tensor:
+        return self.shared_norm(x.float()).to(self.dtype)
+
+    def _run(self, x: torch.Tensor, apply) -> torch.Tensor:
+        """norm -> block -> + residual [-> norm] over every sub-layer;
+        ``apply(j, block, h)`` runs sub-layer j."""
+        n_sub = len(self.layers)
+        for j, (_, block) in enumerate(self.layers):
+            x = apply(j, block, self._norm(x)) + x
+            if j != n_sub - 1:  # extra norm on all but the last sub-layer
+                x = self._norm(x)
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Full forward of a self-attention-only stack (the encoder)."""
+        if self.cross_attend:
+            raise NotImplementedError(
+                "the teacher-forced decoder forward is not ported yet (ROADMAP)"
+            )
+        return self._run(x, lambda j, block, h: block(h))
+
+    # -- cached decode ----------------------------------------------------------
+
+    def _per_layer(self) -> int:
+        return 3 if self.cross_attend else 2
+
+    def init_cache(self, batch: int, max_len: int, device) -> KVCache:
+        """Zeroed per-layer self-attention K/V, each (B, H, max_len, dh)."""
+        shape = (batch, self.heads, max_len, self.dim_head)
+        return [
+            {"k": torch.zeros(shape, dtype=self.dtype, device=device),
+             "v": torch.zeros(shape, dtype=self.dtype, device=device)}
+            for _ in range(self.num_layers)
+        ]
+
+    def precompute_cross_kv(self, enc: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+        """Per-layer cross-attention K/V of the encoder output, each
+        (B, H, Nk, dh), computed once per sequence."""
+        per = self._per_layer()
+        out = []
+        for layer in range(self.num_layers):
+            k, v = self.layers[layer * per + 1][1].project_kv(enc)
+            out.append({"k": k, "v": v})
+        return out
+
+    def step(self, x_t: torch.Tensor, cache: KVCache, t: int,
+             cross_kv: Optional[List[Dict[str, torch.Tensor]]]) -> torch.Tensor:
+        """One decode step over the stack for (B, 1, D) input at position t."""
+        per = self._per_layer()
+
+        def apply(j, block, h):
+            layer, kind = divmod(j, per)
+            if kind == 0:
+                return block.step(h, cache[layer], t)
+            if kind == 1 and self.cross_attend:
+                return block.attend_cached_kv(h, cross_kv[layer])
+            return block(h)
+
+        return self._run(x_t, apply)

@@ -1,0 +1,123 @@
+"""Inference wrapper: image -> (token ids, LaTeX string), greedy.
+
+``TexOCR(config)`` loads the tokenizer named by ``config['tokenizer_path']``
+and a reference-keyed state dict (``config['model_path']`` as ``.pth``/``.npz``,
+or ``state_dict=``), adopting the checkpoint's decoder positional-table length;
+without one the weights come from a generator seeded with ``config['seed']``.
+Each image goes onto a white uint8 bucket canvas (height a multiple of 16,
+width of 64, at most the configured ``img_size``), crosses to the device as
+uint8 and becomes ``1 - u8 / 255`` there. Then encode, greedy decode, and
+BPE decode plus ``process_output`` up to EOS or PAD.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from texocr_tpu_torch.checkpoint.convert import POS_EMBED_KEY, load_state
+from texocr_tpu_torch.config import ModelConfig, with_defaults
+from texocr_tpu_torch.models import OCRModel, greedy_decode
+from texocr_tpu_torch.tokenizer import RegexBPETokenizer
+from texocr_tpu_torch.utils import pad_to_multiple, process_output
+
+
+class TexOCR:
+    def __init__(self, config: dict, device="cuda",
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None):
+        config = with_defaults(dict(config))
+        self.tokenizer = RegexBPETokenizer().load(config["tokenizer_path"])
+        config["vocab_size"] = self.tokenizer.vocab_size
+        if state_dict is None and config.get("model_path"):
+            state_dict = load_state(config["model_path"])
+        if state_dict is not None:
+            # Adopt the checkpoint's positional-table length.
+            config["max_length"] = int(state_dict[POS_EMBED_KEY].shape[0])
+        config.setdefault("max_length", 512)
+        self.config = config
+        self.device = torch.device(device)
+        self.model = OCRModel(ModelConfig.from_dict(config), device=self.device,
+                              seed=config.get("seed", 42))
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict, strict=True)
+        self.model.eval()
+
+    # -- preprocessing ---------------------------------------------------------
+
+    def preprocess(self, img) -> np.ndarray:
+        """A PIL image or a 2-D uint8 array -> (1, H', W', 1) uint8 canvas.
+
+        An image larger than the largest canvas is scaled down to fit: a PIL
+        image with PIL's bilinear resize, as the JAX wrapper does; an array with
+        ``F.interpolate(mode='bilinear', antialias=True)``, which is close to
+        but not byte-identical with PIL's."""
+        if isinstance(img, np.ndarray):
+            if img.ndim != 2 or img.dtype != np.uint8:
+                raise ValueError(f"expected a 2-D uint8 array, got {img.dtype} {img.shape}")
+            arr = img
+        else:
+            arr = None
+            if img.mode != "L":
+                img = img.convert("L")
+        h, w = (arr.shape if arr is not None else img.size[::-1])
+        max_h, max_w = self.model.config.encoder.img_size
+        ch = min(pad_to_multiple(max(h, 16), 16), max_h)
+        cw = min(pad_to_multiple(max(w, 64), 64), max_w)
+        if h > ch or w > cw:
+            scale = min(ch / h, cw / w)
+            new_w, new_h = max(1, int(w * scale)), max(1, int(h * scale))
+            if arr is None:
+                from PIL import Image
+
+                img = img.resize((new_w, new_h), Image.BILINEAR)
+            else:
+                x = torch.from_numpy(arr.astype(np.float32))[None, None]
+                x = F.interpolate(x, size=(new_h, new_w), mode="bilinear",
+                                  align_corners=False, antialias=True)
+                arr = x[0, 0].round().clamp(0, 255).to(torch.uint8).numpy()
+            h, w = new_h, new_w
+            # Capped at the largest canvas: a width of 1008 rounds up to 1024,
+            # which the positional table does not cover.
+            ch = min(pad_to_multiple(max(h, 16), 16), max_h)
+            cw = min(pad_to_multiple(max(w, 64), 64), max_w)
+        canvas = np.full((ch, cw), 255, np.uint8)
+        top, left = (ch - h) // 2, (cw - w) // 2
+        canvas[top: top + h, left: left + w] = arr if arr is not None else np.asarray(img)
+        return canvas[None, ..., None]
+
+    # -- inference ---------------------------------------------------------------
+
+    def __call__(self, img, max_len: int = 350, mode: str = "greedy") -> Tuple[list, str]:
+        """(token ids up to and excluding EOS, LaTeX string)."""
+        tokens = self.generate_batch(self.preprocess(img), max_len=max_len, mode=mode)
+        return self.postprocess(tokens[0].cpu().numpy())
+
+    @torch.inference_mode()
+    def generate_batch(self, images, max_len: int = 350, mode: str = "greedy") -> torch.Tensor:
+        """(B, H, W, 1) uint8 canvases (numpy or tensor) -> (B, max_len) int64
+        token ids on the model's device, PAD after EOS."""
+        if mode in ("sample", "beam"):
+            raise NotImplementedError(
+                f"mode={mode!r} is not ported yet (ROADMAP: sampled decode, then beam)"
+            )
+        if mode != "greedy":
+            raise ValueError(f"unknown decode mode: {mode!r}")
+        u8 = torch.as_tensor(images).to(self.device)
+        x = 1.0 - u8.float() / 255.0
+        cfg = self.model.config
+        enc = self.model.encode(x)
+        return greedy_decode(self.model, enc, bos_token=cfg.bos_token,
+                             eos_token=cfg.eos_token, pad_token=cfg.pad_token,
+                             max_len=max_len)
+
+    def postprocess(self, row: np.ndarray) -> Tuple[list, str]:
+        cfg = self.model.config
+        ids = []
+        for t in row.tolist():
+            if t == cfg.eos_token or t == cfg.pad_token:
+                break
+            ids.append(int(t))
+        return ids, process_output(self.tokenizer.decode(ids))
