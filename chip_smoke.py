@@ -5,12 +5,18 @@
 
 Phases, each fatal on failure:
   1. device: a CUDA device must be present; prints its name and power limit.
-  2. build: compiles every CUDA kernel of the serving path from csrc/.
+  2. build: compiles every CUDA kernel of the serving path from csrc/, and
+     counts tensor-core instructions in the built library (cuobjdump -sass):
+     all four instantiations of the bfloat16 flash kernel (head dim 64 or
+     128; rows on 16 bytes or not) must hold HGMMA (wgmma) instructions.
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     test shapes and at the serving path's shapes, with timings of the kernel,
-     the plain version and one PyTorch library call as a yardstick.
+     test shapes (masks, ragged tiles, head dims, row alignments) and at the
+     serving path's shapes; then timings of the kernel, the plain version and one PyTorch
+     library call as a yardstick, at the four shapes of the serving path,
+     with L2-warm and L2-cold inputs.
   4. golden: the committed reference goldens through the port on the card in
-     float32 (kernel path): exact greedy tokens, encoder output within 1e-4.
+     float32 (kernel path): exact greedy tokens, encoder output within 1e-4;
+     the float32 kernel's launch count is read from this phase.
   5. serve: the flagship configuration at full width in bfloat16 with seeded
      random weights, answering single requests of three bucket sizes and
      batches of 8 full canvases, each bucket warmed up first and each timed
@@ -25,6 +31,7 @@ the last line {"ok": true, "device": {...}}.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -33,13 +40,15 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+from texocr_tpu_torch.ops.bench import SERVING_SHAPES, split_heads, time_ms  # noqa: E402
+
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 REPEATS = 3  # timed runs per request and per batch; the median is reported
 BATCH = 8  # full canvases per batch
 DECODE_STEPS = 350  # the serving default max_len; random weights never emit EOS
-
 
 def log(msg):
     print(msg, flush=True)
@@ -53,19 +62,28 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters=20, warmup=3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
-    events; inputs stay L2-warm between calls)."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+def sass_ops(library) -> dict:
+    """Per kernel in the built library, its count of tensor-core (HGMMA:
+    wgmma; HMMA: mma.sync) and float32 FMA instructions (cuobjdump -sass)."""
+    from texocr_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(library)], check=True, capture_output=True,
+                          text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :", 1)[1].strip()
+            m = re.search(r"(flash_fwd_\w+?)ILi(\d+)E(?:Lb([01])E)?", mangled)
+            name = mangled
+            if m:  # flash_fwd_bf16<D, VEC> or flash_fwd_f32<D>
+                vec = "" if m.group(3) is None else (", true" if m.group(3) == "1" else ", false")
+                name = f"{m.group(1)}<{m.group(2)}{vec}>"
+            counts[name] = dict.fromkeys(("HGMMA", "HMMA", "FFMA"), 0)
+        elif name is not None:
+            for op in re.findall(r"\b(HGMMA|HMMA|FFMA)\b", line):
+                counts[name][op] += 1
+    return counts
 
 
 def attention_bound_ms(q, k) -> tuple:
@@ -80,49 +98,89 @@ def attention_bound_ms(q, k) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_flash_kernel(fa, gen):
-    """Kernel vs plain on the card; returns the serving layout's numbers.
+def flash_inputs(gen, b, h, nq, nk, dh, dtype, layout):
+    """q, k, v on the card. ``dense``: contiguous (B, H, N, dh). ``split``:
+    views split from (B, N, H * dh), as the encoder makes them. ``slice``:
+    the first dh columns of a (B, H, N, dh rounded up to 8) tensor, so rows
+    start on 16 bytes but the last 16-byte chunk of a row is partly outside
+    dh. ``offset``: dense q and k, and a v that starts 2 bytes past a 16-byte
+    boundary."""
+    if layout == "split":
+        return tuple(split_heads(gen, b, h, n, dh, dtype) for n in (nq, nk, nk))
+    if layout == "slice":
+        pad = -(-dh // 8) * 8
+        return tuple(torch.randn(b, h, n, pad, device="cuda", generator=gen).to(dtype)[..., :dh]
+                     for n in (nq, nk, nk))
+    q, k, v = (torch.randn(b, h, n, dh, device="cuda", generator=gen).to(dtype)
+               for n in (nq, nk, nk))
+    if layout == "offset":
+        v = torch.randn(v.numel() + 1, device="cuda", generator=gen).to(dtype)[1:].view(v.shape)
+    return q, k, v
 
-    ``split`` cases build q, k, v as the encoder does: (B, N, H * dh) split
-    into heads, a (B, H, N, dh) view with strides (N * H * dh, dh, H * dh, 1).
-    There the kernel must also give exactly what it gives on contiguous
-    copies of the same values: its arithmetic does not depend on strides."""
+
+def check_flash_kernel(fa, gen) -> dict:
+    """Kernel vs plain on the card; returns each dtype's error at the serving
+    shape (8, 8, 631, 64) in the split-head layout.
+
+    Every layout but ``dense`` (``flash_inputs``) must also give exactly what
+    the kernel gives on contiguous copies of the same values: its arithmetic
+    depends neither on the strides nor on which bfloat16 loader (16-byte
+    copies, or element by element for rows off 16 bytes) the launch picks.
+    float32 runs the FMA kernel, held to 1e-4 of the plain version; bfloat16
+    runs the tensor-core kernel, held with the plain bf16 version to the
+    float32 plain version on the same bf16 inputs: max(2 x plain error, 2e-2)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = [
-        # (B, H, Nq, Nk, dh, causal, kv_lens, dtype, split)
-        (2, 3, 200, 200, 64, False, None, torch.float32, False),
-        (2, 3, 200, 200, 64, True, None, torch.float32, False),
-        (2, 3, 64, 300, 64, False, None, torch.float32, False),
-        (3, 3, 96, 160, 64, False, [160, 100, 1], torch.float32, False),
-        (2, 2, 130, 130, 64, True, [0, 7], torch.float32, False),
-        (2, 2, 70, 90, 128, False, None, torch.float32, False),
-        (8, 8, 631, 631, 64, False, None, torch.float32, False),
-        (8, 8, 631, 631, 64, False, None, torch.bfloat16, False),
-        (8, 8, 631, 631, 64, False, None, torch.float32, True),
-        (8, 8, 631, 631, 64, False, None, torch.bfloat16, True),  # serving: 8 full canvases
+        # (B, H, Nq, Nk, dh, causal, kv_lens, dtype, layout)
+        (2, 3, 200, 200, 64, False, None, f32, "dense"),
+        (2, 3, 200, 200, 64, True, None, f32, "dense"),
+        (2, 3, 64, 300, 64, False, None, f32, "dense"),
+        (3, 3, 96, 160, 64, False, [160, 100, 1], f32, "dense"),
+        (2, 2, 130, 130, 64, True, [0, 7], f32, "dense"),
+        (2, 2, 70, 90, 128, False, None, f32, "dense"),
+        (8, 8, 631, 631, 64, False, None, f32, "dense"),
+        (8, 8, 631, 631, 64, False, None, bf16, "dense"),
+        (8, 8, 631, 631, 64, False, None, f32, "split"),
+        (8, 8, 631, 631, 64, False, None, bf16, "split"),  # serving: 8 full canvases
+        # bfloat16 masks, ragged tiles and head dims
+        (2, 3, 130, 130, 64, True, None, bf16, "dense"),
+        (3, 3, 96, 160, 64, False, [160, 100, 1], bf16, "dense"),
+        (2, 2, 130, 130, 64, True, [0, 7], bf16, "dense"),
+        (2, 3, 64, 300, 64, False, None, bf16, "dense"),
+        (2, 2, 70, 90, 32, False, None, bf16, "dense"),
+        (2, 2, 70, 90, 128, False, None, bf16, "dense"),
+        (2, 4, 200, 200, 128, True, None, bf16, "split"),
+        # bfloat16 rows off the 16-byte grid (element-wise loader) and row
+        # tails inside a 16-byte chunk (16-byte loader, partial last copy)
+        (2, 2, 70, 90, 36, False, None, bf16, "dense"),
+        (2, 2, 70, 90, 40, False, None, bf16, "dense"),
+        (2, 4, 130, 130, 36, True, None, bf16, "split"),
+        (2, 2, 70, 90, 36, False, [90, 5], bf16, "slice"),
+        (2, 2, 70, 90, 100, False, None, bf16, "dense"),
+        (2, 2, 70, 90, 100, False, None, bf16, "slice"),
+        (2, 3, 130, 130, 64, True, None, bf16, "offset"),
+        (2, 2, 70, 90, 36, False, None, f32, "dense"),
+        # the serving path's single requests at the three buckets
+        (1, 8, 631, 631, 64, False, None, bf16, "split"),
+        (1, 8, 193, 193, 64, False, None, bf16, "split"),
+        (1, 8, 17, 17, 64, False, None, bf16, "split"),
     ]
-    row = None
-    for b, h, nq, nk, dh, causal, lens, dtype, split in cases:
-        if split:
-            q, k, v = (torch.randn(b, n, h * dh, device="cuda", generator=gen).to(dtype)
-                       .view(b, n, h, dh).transpose(1, 2) for n in (nq, nk, nk))
-        else:
-            q, k, v = (torch.randn(b, h, n, dh, device="cuda", generator=gen).to(dtype)
-                       for n in (nq, nk, nk))
+    errors = {}
+    for b, h, nq, nk, dh, causal, lens, dtype, layout in cases:
+        q, k, v = flash_inputs(gen, b, h, nq, nk, dh, dtype, layout)
         kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
         scale = dh ** -0.5
         got = fa.flash_attention(q, k, v, scale=scale, causal=causal, kv_lens=kv_lens)
         torch.cuda.synchronize()
         plain = fa.flash_attention_plain(q, k, v, scale=scale, causal=causal, kv_lens=kv_lens)
-        if dtype == torch.float32:
+        if dtype == f32:
             err = (got - plain).abs().max().item()
             tol = 1e-4
             ok = err <= tol
             note = f"max|kernel-plain| {err:.3e} (tol {tol:g})"
         else:
-            # bfloat16: kernel and bf16 plain both against the float32 plain
-            # version on the same bf16 inputs.
             ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), scale=scale,
                                            causal=causal, kv_lens=kv_lens)
             err = (got.float() - ref).abs().max().item()
@@ -132,33 +190,51 @@ def check_flash_kernel(fa, gen):
             vs_plain = (got.float() - plain.float()).abs().max().item()
             note = (f"max|kernel-f32| {err:.3e}, max|plain-f32| {plain_err:.3e} (tol {tol:.3e}); "
                     f"max|kernel-plain| {vs_plain:.3e}, max|f32| {ref.abs().max().item():.3e}")
-        if split:
-            dense = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+        ok = ok and bool(torch.isfinite(got).all())
+        if layout != "dense":
+            dense = fa.flash_attention(*(t.clone(memory_format=torch.contiguous_format)
+                                         for t in (q, k, v)),
                                        scale=scale, causal=causal, kv_lens=kv_lens)
             stride_diff = (got.float() - dense.float()).abs().max().item()
             ok = ok and stride_diff == 0
-            note += f"; max|split-contiguous| {stride_diff:.3e} (must be 0)"
+            note += f"; max|{layout}-contiguous| {stride_diff:.3e} (must be 0)"
         log(f"[kernels] flash_attention {(b, h, nq, nk, dh)} causal={causal} "
-            f"kv_lens={lens} {str(dtype)[6:]} strides={q.stride()}: {note} "
-            f"{'ok' if ok else 'FAIL'}")
+            f"kv_lens={lens} {str(dtype)[6:]} {layout} strides={q.stride()}/{v.stride()} "
+            f"v%16={v.data_ptr() % 16}: {note} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("flash attention kernel disagrees with its plain version")
-        if split and dtype == torch.bfloat16:
-            bound, bound_by = attention_bound_ms(q, k)
-            kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v, scale=scale))
-            row = {
-                "max_abs_err": err,
-                "ms": kernel_ms,
-                "kernel_ms": kernel_ms,
-                "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, scale=scale)),
-                "bound_ms": bound,
-                "bound_by": bound_by,
-                "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, scale=scale)),
+        if layout == "split" and (b, h, nq, dh) == SERVING_SHAPES[0]:
+            errors[dtype] = err
+    return errors
+
+
+def time_flash(fa, gen) -> dict:
+    """Per dtype, per serving shape (split-head layout, unmasked): the
+    kernel's, the plain version's and scaled_dot_product_attention's time
+    (a yardstick the port never calls), L2-warm and L2-cold, beside the
+    bound."""
+    timings = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        rows = []
+        for b, h, n, dh in SERVING_SHAPES:
+            q, k, v = (split_heads(gen, b, h, n, dh, dtype) for _ in range(3))
+            scale = dh ** -0.5
+            calls = {
+                "ms": lambda: fa.flash_attention(q, k, v, scale=scale),
+                "plain_ms": lambda: fa.flash_attention_plain(q, k, v, scale=scale),
+                "library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, scale=scale),
             }
-            log(f"[kernels] flash_attention {(b, h, nq, nk, dh)} bf16 split-head timing: "
-                + json.dumps({k_: row[k_] for k_ in ("ms", "plain_ms", "library_ms", "bound_ms")}))
-    return row
+            bound, bound_by = attention_bound_ms(q, k)
+            row = {"shape": [b, h, n, dh], "bound_ms": bound, "bound_by": bound_by}
+            for key, fn in calls.items():
+                row[key] = time_ms(fn)
+                row[key + "_l2_cold"] = time_ms(fn, cold=True)
+            rows.append(row)
+            log(f"[kernels] flash_attention {str(dtype)[6:]} {(b, h, n, dh)} split-head timing: "
+                + json.dumps(row))
+        timings[dtype] = rows
+    return timings
 
 
 def check_golden(fa):
@@ -182,12 +258,12 @@ def check_golden(fa):
     model.load_state_dict(load_state(os.path.join(goldens, "model_state.npz")), strict=True)
     io = np.load(os.path.join(goldens, "model_io.npz"))
     images = torch.from_numpy(io["images"]).permute(0, 2, 3, 1).contiguous().cuda()
-    before = fa.flash_attention.launches
+    fa.flash_attention.launches = 0
     with torch.inference_mode():
         enc = model.encode(images)
     tokens = greedy_decode(model, enc, bos_token=48, eos_token=-1, pad_token=49,
                            max_len=io["greedy_tokens"].shape[1] - 1)
-    launches = fa.flash_attention.launches - before
+    launches = fa.flash_attention.launches  # all float32: the float32 kernel's
     enc_ok = np.allclose(enc.cpu().numpy(), io["enc_out"], rtol=1e-4, atol=1e-4)
     enc_err = float(np.abs(enc.cpu().numpy() - io["enc_out"]).max())
     tokens_ok = np.array_equal(tokens.cpu().numpy(), io["greedy_tokens"][:, 1:])
@@ -195,6 +271,7 @@ def check_golden(fa):
         f"greedy tokens {'exact' if tokens_ok else 'DIFFER'}; flash launches {launches}")
     if not (enc_ok and tokens_ok and launches > 0):
         raise AssertionError("golden check failed on the card")
+    return launches
 
 
 def canvas(rng, h, w) -> np.ndarray:
@@ -242,7 +319,7 @@ def serve(fa, rng):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     batch_s = float(np.median(times))
-    launches = fa.flash_attention.launches
+    launches = fa.flash_attention.launches  # all bfloat16: the bfloat16 kernel's
     tokens = tokens.cpu().numpy()
     if tokens.shape != (BATCH, DECODE_STEPS) or tokens.min() < 0 or tokens.max() >= 1000:
         raise AssertionError(f"bad batch tokens: shape {tokens.shape}")
@@ -351,7 +428,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
     from texocr_tpu_torch.ops import build
     from texocr_tpu_torch.ops import flash_attention as fa
 
@@ -359,29 +435,50 @@ def main() -> int:
     log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _, build_log = build.build(fa.SOURCE)
+    library, build_log = build.build(fa.SOURCE)
     log(f"[build] {fa.SOURCE} built in {time.perf_counter() - t0:.1f} s")
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(word in line for word in ("entry function", "registers", "spill", "warning",
+                                         "wgmma")):
             log(f"[build]   {line.strip()}")
+    sass = sass_ops(library)
+    for name, ops in sass.items():
+        log(f"[build] sass {name}: {ops}")
+    bf16_kernels = [ops for name, ops in sass.items() if name.startswith("flash_fwd_bf16")]
+    if len(bf16_kernels) != 4 or any(ops["HGMMA"] == 0 for ops in bf16_kernels):
+        raise AssertionError("the bfloat16 flash kernels must run on the tensor cores (HGMMA)")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    row = check_flash_kernel(fa, gen)
-    check_golden(fa)
+    errors = check_flash_kernel(fa, gen)
+    timings = time_flash(fa, gen)
+    f32_launches = check_golden(fa)
     rng = np.random.default_rng(0)
     served = serve(fa, rng)
     profile_serving(served["engine"], served["batch"])
     del served["engine"]
     check_encoder_paths(rng)
 
-    kernels = [dict(
-        name="flash_attention",
-        route="cuda",
-        source="texocr_tpu_torch/csrc/flash_attention.cu",
-        replaces="texocr_tpu/ops/flash_attention.py:62",
-        launches=served["launches"],
-        **row,
-    )]
+    kernels = []
+    for dtype, name, instruction, launches, path in (
+        (torch.bfloat16, "flash_attention_bf16", "wgmma (HGMMA)", served["launches"],
+         "serve (bfloat16 flagship)"),
+        (torch.float32, "flash_attention_f32", "FFMA", f32_launches, "golden (float32)"),
+    ):
+        serving_shape = timings[dtype][0]
+        kernels.append(dict(
+            name=name,
+            route="cuda",
+            source="texocr_tpu_torch/csrc/flash_attention.cu",
+            replaces="texocr_tpu/ops/flash_attention.py:62",
+            instruction=instruction,
+            launches=launches,
+            launches_path=path,
+            max_abs_err=errors[dtype],
+            **{key: serving_shape[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "ms_l2_cold", "plain_ms_l2_cold", "library_ms_l2_cold")},
+            shapes=timings[dtype],
+        ))
     log(json.dumps({"kernels": kernels}))
     log(f"[serve] median per-request s {served['request_s']}, batch img/s "
         f"{BATCH / served['batch_s']} on {card}")

@@ -4,6 +4,7 @@ against xla_attention with dense and right-aligned causal masks.
 
 Tolerance: atol 2e-5, the one tests/test_flash_attention.py holds the Pallas
 kernel to; both sides compute float32 logits and softmax on the same inputs.
+The bfloat16 cases state their own tolerance (``test_bf16_plain_matches_pallas``).
 """
 
 import numpy as np
@@ -14,6 +15,7 @@ import jax.numpy as jnp
 
 from texocr_tpu.ops.attention_core import xla_attention
 from texocr_tpu.ops.flash_attention import flash_attention as jax_flash
+from texocr_tpu.ops.flash_attention import flash_attention_supported as jax_flash_supported
 from texocr_tpu_torch.ops.attention_core import attention_core
 from texocr_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -55,6 +57,49 @@ def test_flash_matches_pallas_interpret(shape, causal, lens):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+@pytest.mark.parametrize(
+    "shape, dh, causal, lens",
+    [
+        ((2, 2, 131, 131), 64, False, None),  # ragged: 131 = 2 * 64 + 3
+        ((1, 2, 131, 131), 32, False, None),
+        ((1, 2, 131, 131), 128, False, None),
+        ((2, 2, 131, 131), 64, True, None),
+        ((3, 2, 96, 160), 64, False, [160, 100, 1]),
+    ],
+)
+def test_bf16_plain_matches_pallas(shape, dh, causal, lens):
+    """bfloat16, the serving type: the plain version (what the CUDA kernel is
+    held to on the card) against the Pallas kernel in interpret mode, on the
+    same numpy inputs rounded to bfloat16 on both sides.
+
+    Each is held to the float32 result on the same bfloat16 inputs within what
+    its two roundings allow: half a bfloat16 step of the output (2^-8
+    relative) plus P's rounding, 2^-9 relative on weights that sum to 1
+    (2^-9 * max|V|). Both round the normalised P and the output at the same
+    points, so they differ only where float32 sums taken in another order
+    round to neighbouring bfloat16 values: they must be closer to each other
+    than the Pallas kernel is to float32."""
+    b, h, nq, nk = shape
+    q, k, v = _qkv(11, b, h, nq, nk, dh)
+    scale = dh ** -0.5
+    kv_lens = None if lens is None else np.asarray(lens, np.int32)
+    want = jax_flash(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), scale=scale,
+                     causal=causal, kv_lens=None if lens is None else jnp.asarray(kv_lens),
+                     interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    qb, kb, vb = (t.to(torch.bfloat16) for t in _t(q, k, v))
+    torch_lens = None if lens is None else torch.from_numpy(kv_lens)
+    got = flash_attention(qb, kb, vb, scale=scale, causal=causal, kv_lens=torch_lens)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    ref = flash_attention_plain(qb.float(), kb.float(), vb.float(), scale=scale, causal=causal,
+                                kv_lens=torch_lens).numpy()
+    tol = 2.0 ** -8 * np.abs(ref) + 2.0 ** -9 * np.abs(vb.float().numpy()).max()
+    assert np.all(np.abs(got - ref) <= tol)
+    assert np.all(np.abs(want - ref) <= tol)
+    assert np.abs(got - want).max() <= np.abs(want - ref).max()
+
+
 def test_zero_kv_len_follows_the_math_path():
     """kv_lens[b] == 0: every key masked, softmax uniform over all Nk keys, as
     xla_attention computes (the Pallas kernel averages over padded keys)."""
@@ -79,6 +124,48 @@ def test_supported_gate():
     assert not flash_attention_supported(torch.zeros(1, 1, 4, 160), torch.zeros(1, 1, 4, 160))
     assert not flash_attention_supported(q, torch.zeros(1, 1, 4097, 64))
     assert not flash_attention_supported(q.half(), k.half())
+
+
+def _offset_by_one(b, h, n, dh):
+    """A (B, H, N, dh) bfloat16 tensor whose data starts 2 bytes past the
+    allocation, so no row starts on 16 bytes."""
+    return torch.zeros(b * h * n * dh + 1, dtype=torch.bfloat16)[1:].view(b, h, n, dh)
+
+
+def _split(b, h, n, dh):
+    return torch.zeros(b, n, h * dh, dtype=torch.bfloat16).view(b, n, h, dh).transpose(1, 2)
+
+
+@pytest.mark.parametrize(
+    "make_q, make_k, expected",
+    [
+        # bfloat16 rows off the 16-byte grid: the kernel takes them all
+        (lambda: torch.zeros(2, 2, 70, 36, dtype=torch.bfloat16),
+         lambda: torch.zeros(2, 2, 90, 36, dtype=torch.bfloat16), True),
+        (lambda: _split(2, 4, 130, 36), lambda: _split(2, 4, 130, 36), True),
+        (lambda: torch.zeros(2, 2, 70, 40, dtype=torch.bfloat16)[..., :36],
+         lambda: torch.zeros(2, 2, 90, 40, dtype=torch.bfloat16)[..., :36], True),
+        (lambda: _offset_by_one(2, 3, 130, 64), lambda: _offset_by_one(2, 3, 130, 64), True),
+        (lambda: torch.zeros(1, 2, 70, 100, dtype=torch.bfloat16),
+         lambda: torch.zeros(1, 2, 90, 100, dtype=torch.bfloat16), True),
+        (lambda: torch.zeros(1, 2, 70, 64), lambda: torch.zeros(1, 2, 90, 64), True),
+        # outside the gate in both packages
+        (lambda: torch.zeros(1, 2, 70, 160, dtype=torch.bfloat16),
+         lambda: torch.zeros(1, 2, 90, 160, dtype=torch.bfloat16), False),
+        (lambda: torch.zeros(1, 2, 1, 36, dtype=torch.bfloat16),
+         lambda: torch.zeros(1, 2, 90, 36, dtype=torch.bfloat16), False),
+        (lambda: torch.zeros(1, 1, 8, 36, dtype=torch.bfloat16),
+         lambda: torch.zeros(1, 1, 4097, 36, dtype=torch.bfloat16), False),
+    ],
+)
+def test_gate_equals_the_jax_gate(make_q, make_k, expected):
+    """The port routes to the kernel exactly the calls the JAX package routes
+    to its Pallas kernel, whatever the head dim, strides or alignment of the
+    bfloat16 rows (the kernel loads rows off 16 bytes element by element)."""
+    q, k = make_q(), make_k()
+    want = jax_flash_supported(jnp.zeros(q.shape, jnp.bfloat16), jnp.zeros(k.shape, jnp.bfloat16))
+    assert want == expected
+    assert flash_attention_supported(q, k) == expected
 
 
 def test_flash_rejects_what_the_kernel_does_not_take():

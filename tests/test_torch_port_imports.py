@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports nothing of JAX or texocr_tpu, and
-its serving path and chip_smoke.py need neither PIL, PyYAML nor regex."""
+its serving path, chip_smoke.py and tools/flash_kernel_ab.py need neither PIL,
+PyYAML nor regex."""
 
 import os
 import re
@@ -35,10 +36,11 @@ _CHILD = textwrap.dedent(
                                                    "texocr_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)  # defines main() without running it
-    assert callable(smoke.main)
+    for script in ("chip_smoke.py", "tools/flash_kernel_ab.py"):
+        spec = importlib.util.spec_from_file_location(script[:-3].split("/")[-1], script)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)  # defines main() without running it
+        assert callable(module.main)
 
     # The serving path on a uint8 array touches none of the blocked modules.
     from texocr_tpu_torch.serving import TexOCR
@@ -86,7 +88,8 @@ def test_no_jax_or_reference_imports_in_port_sources():
                 with open(path) as f:
                     if pattern.search(f.read()):
                         offenders.append(os.path.relpath(path, REPO))
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
-        if pattern.search(f.read()):
-            offenders.append("chip_smoke.py")
+    for script in ("chip_smoke.py", "tools/flash_kernel_ab.py"):
+        with open(os.path.join(REPO, script)) as f:
+            if pattern.search(f.read()):
+                offenders.append(script)
     assert not offenders, offenders

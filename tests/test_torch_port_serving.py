@@ -66,6 +66,24 @@ def test_oversized_array_fits_the_largest_canvas(engines):
     assert h % 16 == 0 and canvas.shape[0] == 1 and canvas.shape[3] == 1
 
 
+def test_canvas_capped_where_the_jax_wrapper_raises():
+    """img_size (32, 112): a width that is a multiple of 16 but not of 64. An
+    oversized image scaled down to 112 columns rounds up to a 128-wide canvas
+    in the JAX wrapper; its 8 feature columns exceed the 7-column positional
+    grid, numpy clips the grid slice to 7 columns, and the positional add
+    fails to broadcast. The port caps the canvas at img_size and answers."""
+    cfg = dict(_config(), img_size=(32, 112))
+    jax_engine = JaxTexOCR(cfg)
+    port = TexOCR(cfg, device="cpu", state_dict=state_dict_from_jax(jax_engine.params))
+    img = Image.fromarray(_ink(np.random.default_rng(3), 20, 1000))
+    assert jax_engine.preprocess(img).shape[2] == 128
+    with pytest.raises((TypeError, ValueError), match="broadcast"):
+        jax_engine(img, max_len=4)
+    assert port.preprocess(img).shape[1:3] == (16, 112)
+    ids, latex = port(img, max_len=4)
+    assert len(ids) <= 4 and all(0 <= i < 1000 for i in ids) and isinstance(latex, str)
+
+
 def test_unported_modes_raise(engines):
     _, port = engines
     batch = port.preprocess(np.full((16, 64), 255, np.uint8))

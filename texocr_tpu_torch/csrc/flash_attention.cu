@@ -3,36 +3,68 @@
 // Replaces the Pallas TPU kernel `_fa_kernel` (texocr_tpu/ops/flash_attention.py),
 // which keeps the whole K/V of one (batch, head) resident in many-MB VMEM and
 // softmaxes each 128-query block against all keys at once. A Hopper block has at
-// most 227 KB of shared memory: 631 x 64 float32 K+V alone is 323 KB. So this
-// kernel walks K/V in 64-key tiles staged in shared memory, with an online softmax
-// (running row max and row sum, both float32) and the output rescaled as the max
+// most 227 KB of shared memory, and several blocks per SM are needed to hide
+// latency, so both kernels here walk K/V in 64-key tiles with an online softmax
+// (running row max and row sum, both float32) and rescale the output as the max
 // moves. The (Nq, Nk) score matrix never reaches device memory.
 //
 // What bounds it: at the encoder's shapes (N = 631, dh = 64) the work is
 // 4 * N^2 * dh operations against 4 * N * dh elements moved, about 160 operations
-// per element, so the ideal kernel is bound by operations. This first version
-// multiplies with plain float32 FMAs from shared memory (no tensor cores), so it
-// sits far above that bound; wgmma/TMA is later work.
+// per element, so the ideal kernel is bound by operations: in bfloat16, by the
+// tensor cores.
 //
-// Layout: one block per (64-query tile, head, batch); 256 threads as a 16 x 16
-// grid, each thread owns 4 query rows x 4 key columns of a score tile and
-// 4 rows x dh/16 columns of the output. Rows of one 16-thread half-warp share a
-// query row set, so row reductions are 4 xor-shuffles.
+// Two kernels, chosen by the input type:
+//
+// bfloat16 (the serving path): `flash_fwd_bf16`, both products on the tensor
+// cores with `wgmma.mma_async` m64n64k16 (bf16 in, float32 accumulate). One block
+// of one warpgroup (128 threads) per (64-query tile, head, batch). Q (64 x D) and
+// a double-buffered ring of K and V tiles (64 keys x D each) sit in shared memory
+// as bf16, written by 16-byte `cp.async` copies (zero-filled past Nq, Nk and dh)
+// into the 128-byte-swizzled layout the wgmma descriptors name; tile j+1's copies
+// are issued before tile j's products. S = Q K^T reads both operands from shared
+// memory, K-major. The online softmax runs in registers on the accumulator
+// layout (each row's 64 columns spread over the 4 threads of a quad), in base 2
+// with one `ex2.approx` per element. P, rounded to bf16, is fed back from
+// registers as the A operand of O += P V (the accumulator fragment of S is the
+// register A fragment of the second product), with V read from shared memory as
+// an MN-major B operand (transpose bit set). Shared memory: 5 tiles of 64 x D
+// bf16 = 40 KB for D = 64, 80 KB for D = 128; at D = 64 registers (about 140 a
+// thread), not shared memory, hold an SM to three blocks.
+// Loads are `cp.async`, not TMA: the split-head layout has strides
+// (N*H*dh, dh, H*dh, 1), so a TMA map would be 4-D and built on the host per
+// call. TMA, 128-query tiles (each 64-query block reads the whole of its
+// head's K and V from L2) and a persistent, warp-specialised schedule are
+// later work.
+//
+// float32: `flash_fwd_f32`, plain float32 FMAs from shared memory (256 threads,
+// each owning 4 query rows x 4 key columns). float32 is not on the serving path;
+// it stays off the tensor cores because the golden check on the card runs in
+// float32 with TF32 disabled and needs exact greedy tokens, which a TF32 product
+// would not give.
 //
 // Semantics follow the plain math path (texocr_tpu_torch/ops/attention_core.py):
 // logits and softmax in float32; a key is masked when col >= kv_lens[b] or, if
 // causal, col > row (top-left aligned; callers only ask for causal with Nq == Nk);
 // masked logits are filled with -FLT_MAX, so a row with no valid key softmaxes to
-// uniform over all Nk keys. Keys past Nk are excluded outright (-inf). Inputs are
-// float32 or bfloat16, accumulation is float32, and the output has q's type.
+// uniform over all Nk keys. Keys past Nk are excluded outright (-inf). Key tiles
+// that no row of a block may attend are skipped only when some key is valid.
+// Accumulation is float32 and the output has q's type and q's strides.
 //
 // One deliberate difference in precision: the TPU kernel and the math path round
-// the normalised probabilities P to the input type before the PV product. Here P
-// stays unnormalised float32 (an online softmax knows the normaliser only after
-// the last key tile, so it cannot round the normalised P), and the output is
-// divided by the row sum at the end. In float32 the two agree to rounding; in
-// bfloat16 this kernel is the more exact of the two, and a greedy token chosen on
-// a near tie may differ from the math path's.
+// the normalised probabilities P to the input type before the PV product (an
+// online softmax knows the normaliser only after the last key tile). In float32
+// the FMA kernel keeps P unnormalised and unrounded, and agrees with the math path
+// to rounding. In bfloat16 the tensor-core kernel rounds P to bf16 unnormalised,
+// against the running max, and divides by the float32 row sum (of the unrounded
+// P) at the end; its error against float32 is of the size of the math path's.
+//
+// bfloat16 rows of any alignment: when q, k and v all start on 16 bytes and
+// their batch, head and row strides are multiples of 8 elements, the tiles load
+// with 16-byte `cp.async` (the last chunk of a row copies only its 2 (dh - 8c)
+// bytes and zero-fills the rest). Otherwise (dh or a stride off the 8-element
+// grid, a pointer off 16 bytes) a second instantiation reads each chunk element
+// by element and stores it to the same swizzled place; those loads do not
+// overlap the math. The launch picks one; both give the same bits.
 //
 // The launch allocates nothing, does not synchronise, runs on the given stream,
 // and returns cudaGetLastError().
@@ -41,43 +73,73 @@
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
 constexpr int BLOCK_Q = 64;
 constexpr int BLOCK_K = 64;
-constexpr int THREADS = 256;  // a 16 x 16 grid of threads
-constexpr int ROWS = BLOCK_Q / 16;  // query rows per thread
-constexpr int COLS = BLOCK_K / 16;  // key columns per thread
 
 struct Strides {
   long long b, h, n;  // the last (dh) stride is 1
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  const int* kv_lens;
+  int batch, heads, nq, nk, dh;
+  Strides qs, ks, vs, os;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
 
-// Copies `rows_valid` rows of `dh` elements into a 64 x D float tile of shared
-// memory (row pitch `pitch`), zero-filling the rest so ragged edges add nothing.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int pitch, const T* src,
-                                          long long row_stride, int rows_valid, int dh) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += THREADS) {
+// Lets `kernel` use `bytes` of dynamic shared memory. `done` (one bit per
+// device) belongs to the kernel's instantiation, so cudaFuncSetAttribute runs
+// once per instantiation and device, not on every launch.
+cudaError_t allow_dynamic_smem(std::atomic<unsigned long long>& done, const void* kernel,
+                               int bytes) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (device & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// ---------------------------------------------------------------------------
+// float32: FMA kernel
+// ---------------------------------------------------------------------------
+
+constexpr int F32_THREADS = 256;  // a 16 x 16 grid of threads
+constexpr int ROWS = BLOCK_Q / 16;  // query rows per thread
+constexpr int COLS = BLOCK_K / 16;  // key columns per thread
+
+// Copies `rows_valid` rows of `dh` floats into a 64 x D tile of shared memory
+// (row pitch `pitch`), zero-filling the rest so ragged edges add nothing.
+template <int D>
+__device__ __forceinline__ void load_tile_f32(float* dst, int pitch, const float* src,
+                                              long long row_stride, int rows_valid, int dh) {
+  for (int idx = threadIdx.x; idx < 64 * D; idx += F32_THREADS) {
     const int r = idx / D;
     const int c = idx % D;
     float val = 0.f;
-    if (r < rows_valid && c < dh) val = to_float(src[r * row_stride + c]);
+    if (r < rows_valid && c < dh) val = src[r * row_stride + c];
     dst[r * pitch + c] = val;
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, const int* __restrict__ kv_lens, int nq, int nk, int dh,
-                 Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal) {
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o,
+              const int* __restrict__ kv_lens, int nq, int nk, int dh, Strides qs, Strides ks,
+              Strides vs, Strides os, float scale, int causal) {
   constexpr int QK_PITCH = D + 1;  // odd pitch: 16 key rows read in one step hit 16 banks
   constexpr int V_PITCH = D;
   constexpr int P_PITCH = BLOCK_K + 1;
@@ -105,10 +167,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (causal) k_end = min(k_end, q0 + BLOCK_Q);
   }
 
-  const T* qb = q + b * qs.b + h * qs.h + (long long)q0 * qs.n;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  load_tile<T, D>(q_s, QK_PITCH, qb, qs.n, min(BLOCK_Q, nq - q0), dh);
+  const float* qb = q + b * qs.b + h * qs.h + (long long)q0 * qs.n;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  load_tile_f32<D>(q_s, QK_PITCH, qb, qs.n, min(BLOCK_Q, nq - q0), dh);
 
   float acc[ROWS][DC];
   float m_run[ROWS];
@@ -124,8 +186,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int k0 = 0; k0 < k_end; k0 += BLOCK_K) {
     __syncthreads();  // the previous tile's K, V and P are no longer read
     const int k_rows = min(BLOCK_K, nk - k0);
-    load_tile<T, D>(k_s, QK_PITCH, kb + (long long)k0 * ks.n, ks.n, k_rows, dh);
-    load_tile<T, D>(v_s, V_PITCH, vb + (long long)k0 * vs.n, vs.n, k_rows, dh);
+    load_tile_f32<D>(k_s, QK_PITCH, kb + (long long)k0 * ks.n, ks.n, k_rows, dh);
+    load_tile_f32<D>(v_s, V_PITCH, vb + (long long)k0 * vs.n, vs.n, k_rows, dh);
     __syncthreads();
 
     float s[ROWS][COLS];
@@ -200,7 +262,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
   }
 
-  T* ob = o + b * os.b + h * os.h;
+  float* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     const int row = q0 + ty * ROWS + i;
@@ -209,25 +271,386 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = tx + 16 * c;
-      if (col < dh) store(ob + row * os.n + col, acc[i][c] * inv);
+      if (col < dh) ob[row * os.n + col] = acc[i][c] * inv;
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, const int* kv_lens,
-                   int batch, int heads, int nq, int nk, int dh, Strides qs, Strides ks,
-                   Strides vs, Strides os, float scale, int causal, cudaStream_t stream) {
-  const int smem = ((BLOCK_Q + BLOCK_K) * (D + 1) + BLOCK_K * D + BLOCK_Q * (BLOCK_K + 1)) *
-                   (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int D>
+cudaError_t launch_f32(const Args& a) {
+  constexpr int smem = ((BLOCK_Q + BLOCK_K) * (D + 1) + BLOCK_K * D + BLOCK_Q * (BLOCK_K + 1)) *
+                       (int)sizeof(float);
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err =
+      allow_dynamic_smem(smem_set, reinterpret_cast<const void*>(flash_fwd_f32<D>), smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((nq + BLOCK_Q - 1) / BLOCK_Q, heads, batch);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), kv_lens, nq, nk, dh, qs, ks, vs, os, scale, causal);
+  const dim3 grid((a.nq + BLOCK_Q - 1) / BLOCK_Q, a.heads, a.batch);
+  flash_fwd_f32<D><<<grid, F32_THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.kv_lens, a.nq, a.nk, a.dh,
+      a.qs, a.ks, a.vs, a.os, a.scale, a.causal);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma kernel
+// ---------------------------------------------------------------------------
+
+constexpr int WG_THREADS = 128;  // one warpgroup
+constexpr int SUB_BYTES = 64 * 128;  // 64 rows x 64 bf16: one 128-byte-swizzle sub-tile
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; src_bytes = 0 zero-fills.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Tile rows [row0, row0 + 64) of a (rows, dh) bf16 matrix (row stride
+// `row_stride`, unit column stride) into shared memory at `dst` as D/64
+// sub-tiles of 64 rows x 128 bytes, each 1024-byte aligned, with the 16-byte
+// chunk c of row r stored at chunk c ^ (r % 8): the 128-byte swizzle that the
+// wgmma descriptors below name. Rows >= rows_total and columns >= dh read as 0.
+// VEC: rows start on 16 bytes, each chunk is one asynchronous copy. Otherwise
+// each chunk is read element by element and stored synchronously.
+template <int D, bool VEC>
+__device__ __forceinline__ void load_tile_bf16(uint32_t dst, const __nv_bfloat16* src,
+                                               long long row_stride, int row0, int rows_total,
+                                               int dh) {
+  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
+  constexpr int PER_THREAD = 64 * CHUNKS / WG_THREADS;
+  // The element-wise loop stays rolled: unrolled, all its loads would be in
+  // flight at once and spill registers at D = 128.
+#pragma unroll(VEC ? PER_THREAD : 1)
+  for (int i = 0; i < PER_THREAD; ++i) {
+    const int idx = threadIdx.x + WG_THREADS * i;
+    const int r = idx / CHUNKS;
+    const int c = idx % CHUNKS;
+    const int row = row0 + r;
+    const int n = row < rows_total ? min(max(dh - 8 * c, 0), 8) : 0;  // elements to read
+    const __nv_bfloat16* g = n > 0 ? src + row * row_stride + c * 8 : src;
+    const uint32_t s = dst + (c / 8) * SUB_BYTES + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+    if constexpr (VEC) {
+      cp_async16(s, g, 2 * n);
+    } else {
+      const unsigned short* e = reinterpret_cast<const unsigned short*>(g);
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t lo = 2 * j < n ? e[2 * j] : 0u;
+        const uint32_t hi = 2 * j + 1 < n ? e[2 * j + 1] : 0u;
+        w[j] = lo | (hi << 16);
+      }
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(s), "r"(w[0]), "r"(w[1]),
+                   "r"(w[2]), "r"(w[3])
+                   : "memory");
+    }
+  }
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead_bytes,
+                                              uint32_t stride_bytes) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lead_bytes >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((stride_bytes >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins the registers of an asynchronous wgmma operand in program order, so the
+// compiler neither reads an accumulator before the wait nor writes one after
+// the fence.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define WG_ACC32                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_ACC32_ARGS(d)                                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),         \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (64 x 64, f32) = A B (+ d if accumulate): A and B from shared memory, both
+// K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_ACC32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC32_ARGS(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A B: A (64 x 16 bf16) from registers, B from shared
+// memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_bt(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_ACC32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC32_ARGS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// 2^x in one MUFU instruction (relative error <= 2^-22; 2^-inf = 0). exp2f
+// without --use_fast_math adds range handling around it, and the softmax's
+// exponentials are a large share of the kernel's instructions.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Accumulator layout of wgmma m64nNk16 (f32): thread t of the warpgroup holds,
+// for register i, row 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2) and
+// column 8 * (i / 4) + 2 * (t % 4) + i % 2. So each thread holds two rows, and
+// each row's columns are spread over the 4 threads of a quad.
+template <int D, bool VEC>
+__global__ void __launch_bounds__(WG_THREADS)
+flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+               const int* __restrict__ kv_lens, int nq, int nk, int dh, Strides qs, Strides ks,
+               Strides vs, Strides os, float scale_log2, int causal) {
+  constexpr int SUB = D / 64;  // 64-column sub-tiles per row
+  constexpr int TILE = SUB * SUB_BYTES;  // one 64 x D tile
+  constexpr int KSTEPS = D / 16;  // k16 steps of Q K^T
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // The swizzle acts on address bits, so every sub-tile starts on 1024 bytes.
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  // Stage s of the ring: K at q_s + TILE * (1 + 2 s), V right after it.
+
+  const int q0 = blockIdx.x * BLOCK_Q;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row_lo = q0 + 16 * warp + lane / 4;  // rows row_lo and row_lo + 8
+  const int col_q = 2 * (lane % 4);
+
+  int kv_len = nk;
+  if (kv_lens != nullptr) kv_len = min(max(kv_lens[b], 0), nk);
+  int k_end = nk;
+  if (kv_len > 0) {
+    k_end = kv_len;
+    if (causal) k_end = min(k_end, q0 + BLOCK_Q);
+  }
+  const int n_tiles = (k_end + BLOCK_K - 1) / BLOCK_K;
+
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
+  load_tile_bf16<D, VEC>(q_s, qb, qs.n, q0, nq, dh);
+  load_tile_bf16<D, VEC>(q_s + TILE, kb, ks.n, 0, nk, dh);
+  load_tile_bf16<D, VEC>(q_s + 2 * TILE, vb, vs.n, 0, nk, dh);
+  cp_async_commit();
+
+  float s[32];
+  float acc[SUB][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < SUB; ++n) acc[n][i] = 0.f;
+  }
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // this thread's partial row sums
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BLOCK_K;
+    if (t + 1 < n_tiles) {  // the next tile's copies fly during this tile's math
+      const uint32_t next = q_s + TILE * (1 + 2 * ((t + 1) & 1));
+      load_tile_bf16<D, VEC>(next, kb, ks.n, k0 + BLOCK_K, nk, dh);
+      load_tile_bf16<D, VEC>(next + TILE, vb, vs.n, k0 + BLOCK_K, nk, dh);
+    }
+    cp_async_commit();  // possibly empty, so that one wait count fits every step
+    cp_async_wait<1>();  // this tile's copies (and Q's) have landed
+    // Written by this thread's copies (or stores), read by the tensor cores:
+    // make the writes visible to the async proxy, then to the whole warpgroup.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    const uint32_t k_s = q_s + TILE * (1 + 2 * (t & 1));
+    const uint32_t v_s = k_s + TILE;
+
+    // S = Q K^T
+    pin(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const uint32_t off = (kk / 4) * SUB_BYTES + (kk % 4) * 32;
+      wgmma_ss(s, smem_desc(q_s + off, 16, 1024), smem_desc(k_s + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+
+    // Online softmax on the accumulator layout, base 2.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
+    if (k0 + BLOCK_K > kv_len || (causal && k0 + BLOCK_K - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int row = row_lo + 8 * ((i / 2) % 2);
+        const int col = k0 + 8 * (i / 4) + col_q + i % 2;
+        if (col >= nk) {
+          s[i] = -INFINITY;
+        } else if (col >= kv_len || (causal && col > row)) {
+          s[i] = -FLT_MAX;
+        }
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // The tile's first key is < nk, so mx >= -FLT_MAX is finite and no
+      // (-inf) - (-inf) arises; the first tile's alpha is exp2(-inf) = 0.
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = exp2_approx(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+    float row_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      s[i] = exp2_approx(s[i] - m_run[r]);
+      row_sum[r] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + row_sum[r];
+#pragma unroll
+    for (int n = 0; n < SUB; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[n][i] *= alpha[(i / 2) % 2];
+
+    // P in bf16 as the register A operand: keys 16 kk .. 16 kk + 15 are S's
+    // accumulator registers 8 kk .. 8 kk + 7, in order.
+    uint32_t p[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+
+    // O += P V
+#pragma unroll
+    for (int n = 0; n < SUB; ++n) pin(acc[n]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pin(p[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int n = 0; n < SUB; ++n)
+        wgmma_rs_bt(acc[n], p[kk], smem_desc(v_s + n * SUB_BYTES + kk * 16 * 128, SUB_BYTES, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int n = 0; n < SUB; ++n) pin(acc[n]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pin(p[kk]);
+    __syncthreads();  // this stage is free for tile t + 2's copies
+  }
+
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+  // Column pairs store as one 4-byte word where o's rows start on 4 bytes and
+  // dh is even (col is even, so col < dh then covers col + 1). One test per
+  // block: a test per pair made the 17-query call 11% slower on an H100.
+  const bool pairs = reinterpret_cast<uintptr_t>(ob) % 4 == 0 && os.n % 2 == 0 && dh % 2 == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / l;
+    const int row = row_lo + 8 * r;
+    if (row >= nq) continue;
+#pragma unroll
+    for (int n = 0; n < SUB; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * n + 8 * j + col_q;
+        const float lo = acc[n][4 * j + 2 * r] * inv;
+        const float hi = acc[n][4 * j + 2 * r + 1] * inv;
+        __nv_bfloat16* dst = ob + row * os.n + col;
+        if (pairs) {
+          if (col < dh) *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(lo, hi);
+        } else {
+          if (col < dh) dst[0] = __float2bfloat16_rn(lo);
+          if (col + 1 < dh) dst[1] = __float2bfloat16_rn(hi);
+        }
+      }
+  }
+}
+
+template <int D, bool VEC>
+cudaError_t launch_bf16(const Args& a) {
+  constexpr int smem = 5 * 64 * D * 2 + 1024;  // Q, 2 x (K, V), alignment slack
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err =
+      allow_dynamic_smem(smem_set, reinterpret_cast<const void*>(flash_fwd_bf16<D, VEC>), smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.nq + BLOCK_Q - 1) / BLOCK_Q, a.heads, a.batch);
+  flash_fwd_bf16<D, VEC><<<grid, WG_THREADS, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.kv_lens, a.nq,
+      a.nk, a.dh, a.qs, a.ks, a.vs, a.os, a.scale * 1.4426950408889634f, a.causal);
+  return cudaGetLastError();
+}
+
+// Whether an operand's rows all start on 16 bytes.
+bool rows_aligned16(const void* p, const Strides& st) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 8 == 0 && st.h % 8 == 0 &&
+         st.n % 8 == 0;
+}
+
+template <int D>
+cudaError_t launch(const Args& a, int dtype) {
+  if (dtype == 0) return launch_f32<D>(a);
+  const bool vec =
+      rows_aligned16(a.q, a.qs) && rows_aligned16(a.k, a.ks) && rows_aligned16(a.v, a.vs);
+  return vec ? launch_bf16<D, true>(a) : launch_bf16<D, false>(a);
 }
 
 }  // namespace
@@ -244,20 +667,8 @@ extern "C" int texocr_flash_attention_fwd(
   if (batch <= 0 || heads <= 0 || nq <= 0 || nk <= 0 || dh <= 0 || dh > 128 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const Strides qs{q_sb, q_sh, q_sn}, ks{k_sb, k_sh, k_sn}, vs{v_sb, v_sh, v_sn},
-      os{o_sb, o_sh, o_sn};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dh <= 64) {
-    err = dtype == 1 ? launch<__nv_bfloat16, 64>(q, k, v, o, kv_lens, batch, heads, nq, nk, dh,
-                                                  qs, ks, vs, os, scale, causal, s)
-                     : launch<float, 64>(q, k, v, o, kv_lens, batch, heads, nq, nk, dh, qs, ks,
-                                         vs, os, scale, causal, s);
-  } else {
-    err = dtype == 1 ? launch<__nv_bfloat16, 128>(q, k, v, o, kv_lens, batch, heads, nq, nk, dh,
-                                                   qs, ks, vs, os, scale, causal, s)
-                     : launch<float, 128>(q, k, v, o, kv_lens, batch, heads, nq, nk, dh, qs, ks,
-                                          vs, os, scale, causal, s);
-  }
-  return (int)err;
+  const Args a{q, k, v, o, kv_lens, batch, heads, nq, nk, dh,
+               Strides{q_sb, q_sh, q_sn}, Strides{k_sb, k_sh, k_sn}, Strides{v_sb, v_sh, v_sn},
+               Strides{o_sb, o_sh, o_sn}, scale, causal, static_cast<cudaStream_t>(stream)};
+  return (int)(dh <= 64 ? launch<64>(a, dtype) : launch<128>(a, dtype));
 }

@@ -8,17 +8,22 @@ What bounds it on the H100: per (batch, head) the work is 4 * Nq * Nk * dh
 operations on (2 * Nq + 2 * Nk) * dh elements, about 160 operations per element
 at N = 631, dh = 64, so a good kernel is bound by operations (about 0.82 us per
 image-layer in bfloat16 on the tensor cores). The TPU kernel keeps a whole
-(batch, head) of K/V in VMEM; on Hopper that does not fit in a block's 227 KB
-of shared memory (631 x 64 float32 K+V is 323 KB), so ``csrc/flash_attention.cu``
-walks K/V in 64-key tiles with an online softmax and never writes the scores to
-device memory. Its products are plain float32 FMAs, far from the tensor-core
-bound; the source says more.
+(batch, head) of K/V in VMEM; a Hopper block has at most 227 KB of shared
+memory, so ``csrc/flash_attention.cu`` walks K/V in 64-key tiles with an online
+softmax and never writes the scores to device memory. bfloat16 runs both
+products on the tensor cores (``wgmma``, 16-byte ``cp.async`` loads into
+swizzled shared memory, P fed back from registers); float32 uses plain FMAs,
+which keeps the float32 golden tokens exact. The source says more.
 
 - ``flash_attention_plain``: the same function in plain PyTorch.
 - ``flash_attention``: the plain version for a CPU tensor; for a CUDA tensor
   it launches the kernel or raises. ``flash_attention.launches`` counts the
   launches.
-- ``flash_attention_supported``: the calls ``attention_core`` routes here.
+- ``flash_attention_supported``: the calls ``attention_core`` routes here,
+  the JAX package's gate; the kernel takes every bfloat16 or float32 call
+  that passes it, whatever the alignment of its rows.
+- ``bind`` and ``launch``: load a library built from the source and launch
+  its kernel (``flash_attention`` does both for the current source).
 
 Two edge cases the TPU kernel leaves loose are decided here, as the math path
 (``attention_core.math_attention``) computes them: causal is accepted only with
@@ -45,9 +50,9 @@ _lib = None
 
 
 def flash_attention_supported(q, k, allowed=None, causal: bool = False) -> bool:
-    """Whether ``attention_core`` sends this call to ``flash_attention``: no
-    dense mask, 4-D operands of a type the kernel takes, dh <= 128,
-    Nk <= 4096, Nq >= 2, and causal only with Nq == Nk."""
+    """Whether ``attention_core`` sends this call to ``flash_attention``: the
+    JAX package's gate (no dense mask, 4-D operands, dh <= 128, Nk <= 4096,
+    Nq >= 2), a type the kernel takes, and causal only with Nq == Nk."""
     if allowed is not None:
         return False
     if q.dim() != 4 or k.dim() != 4 or q.dtype not in _DTYPES:
@@ -93,21 +98,27 @@ def flash_attention_plain(
     return math_attention(q, k, v, scale=scale, allowed=allowed, causal=causal)
 
 
+def bind(path) -> ctypes.CDLL:
+    """Loads a library built from ``csrc/flash_attention.cu`` (or an earlier
+    version of it with the same C interface) and declares its signature."""
+    lib = ctypes.CDLL(str(path))
+    fn = lib.texocr_flash_attention_fwd
+    fn.argtypes = (
+        [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 5
+        + [ctypes.c_longlong] * 12
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
         from texocr_tpu_torch.ops.build import build
 
-        lib = ctypes.CDLL(str(build(SOURCE)[0]))
-        fn = lib.texocr_flash_attention_fwd
-        fn.argtypes = (
-            [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 5
-            + [ctypes.c_longlong] * 12
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(build(SOURCE)[0])
     return _lib
 
 
@@ -140,12 +151,20 @@ def flash_attention(
     if kv_lens is not None:
         if kv_lens.device != q.device or kv_lens.dtype != torch.int32:
             raise ValueError("kv_lens must be int32 on q's device")
+    return launch(_library(), q, k, v, scale=scale, causal=causal, kv_lens=kv_lens)
+
+
+def launch(lib, q, k, v, *, scale, causal=False, kv_lens=None) -> torch.Tensor:
+    """Launches ``lib``'s kernel (a library from ``bind``) on CUDA operands
+    that ``flash_attention`` takes, on the current stream, and counts the
+    launch in ``flash_attention.launches``."""
+    if kv_lens is not None:
         kv_lens = kv_lens.contiguous()
     b, h, nq, dh = q.shape
     # Same strides as q: for heads split from (B, N, H * dh) the output merges
     # back without a copy.
     out = torch.empty_like(q)
-    err = _library().texocr_flash_attention_fwd(
+    err = lib.texocr_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if kv_lens is None else kv_lens.data_ptr(),
         b, h, nq, k.shape[2], dh,
