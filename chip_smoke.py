@@ -7,8 +7,9 @@ Phases, each fatal on failure:
   1. device: a CUDA device must be present; prints its name and power limit.
   2. build: compiles every CUDA kernel of the serving path from csrc/, and
      counts tensor-core instructions in the built library (cuobjdump -sass):
-     all four instantiations of the bfloat16 flash kernel (head dim 64 or
-     128; rows on 16 bytes or not) must hold HGMMA (wgmma) instructions.
+     all six instantiations of the flash kernel must hold as many HGMMA
+     (wgmma) instructions as their loops issue: bfloat16 (head dim 64 or 128;
+     rows on 16 bytes or not) and float32 (3xTF32; head dim 64 or 128).
   3. kernels: each kernel against its plain PyTorch version on the card, at
      test shapes (masks, ragged tiles, head dims, row alignments) and at the
      serving path's shapes; then timings of the kernel, the plain version and one PyTorch
@@ -41,11 +42,24 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
-from texocr_tpu_torch.ops.bench import SERVING_SHAPES, split_heads, time_ms  # noqa: E402
+from texocr_tpu_torch.ops.bench import (  # noqa: E402
+    SERVING_SHAPES,
+    attention_bound_ms,
+    attention_f64,
+    device_kernel_names,
+    split_heads,
+    time_ms,
+)
 
-H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
-H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
-H100_BYTES_PER_S = 3.35e12
+# HGMMA per instantiation of the flash kernel, by head dim D: one per wgmma of
+# the unrolled loops. bfloat16: Q K^T in D / 16 k-steps, P V in 4 k-steps x
+# D / 64 column blocks. float32: three TF32 products each, Q K^T in D / 8
+# k-steps, P V in 8 k-steps x D / 64 column blocks.
+HGMMA = {
+    **{f"flash_fwd_bf16<{d}, {vec}>": d // 16 + 4 * d // 64
+       for d in (64, 128) for vec in ("true", "false")},
+    **{f"flash_fwd_f32<{d}>": 3 * (d // 8 + 8 * d // 64) for d in (64, 128)},
+}
 REPEATS = 3  # timed runs per request and per batch; the median is reported
 BATCH = 8  # full canvases per batch
 DECODE_STEPS = 350  # the serving default max_len; random weights never emit EOS
@@ -86,25 +100,13 @@ def sass_ops(library) -> dict:
     return counts
 
 
-def attention_bound_ms(q, k) -> tuple:
-    """Least time for one unmasked attention call: q, k, v and o each moved
-    once, against 4 * Nq * Nk * dh operations per (batch, head)."""
-    b, h, nq, dh = q.shape
-    nk = k.shape[2]
-    flops = 4.0 * b * h * nq * nk * dh
-    peak = H100_BF16_FLOPS if q.dtype == torch.bfloat16 else H100_F32_FLOPS
-    nbytes = (2 * nq + 2 * nk) * b * h * dh * q.element_size()
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def flash_inputs(gen, b, h, nq, nk, dh, dtype, layout):
     """q, k, v on the card. ``dense``: contiguous (B, H, N, dh). ``split``:
     views split from (B, N, H * dh), as the encoder makes them. ``slice``:
     the first dh columns of a (B, H, N, dh rounded up to 8) tensor, so rows
     start on 16 bytes but the last 16-byte chunk of a row is partly outside
-    dh. ``offset``: dense q and k, and a v that starts 2 bytes past a 16-byte
-    boundary."""
+    dh. ``offset``: dense q and k, and a v that starts one element (2 or 4
+    bytes) past a 16-byte boundary."""
     if layout == "split":
         return tuple(split_heads(gen, b, h, n, dh, dtype) for n in (nq, nk, nk))
     if layout == "slice":
@@ -124,10 +126,11 @@ def check_flash_kernel(fa, gen) -> dict:
 
     Every layout but ``dense`` (``flash_inputs``) must also give exactly what
     the kernel gives on contiguous copies of the same values: its arithmetic
-    depends neither on the strides nor on which bfloat16 loader (16-byte
-    copies, or element by element for rows off 16 bytes) the launch picks.
-    float32 runs the FMA kernel, held to 1e-4 of the plain version; bfloat16
-    runs the tensor-core kernel, held with the plain bf16 version to the
+    depends neither on the strides nor on which loader (16-byte copies, or
+    element by element for rows off 16 bytes) the launch picks. float32
+    (3xTF32 on the tensor cores) is held to 1e-4 of the plain version, and at
+    the serving shape its error against float64 is printed beside the plain
+    float32 version's; bfloat16 is held with the plain bf16 version to the
     float32 plain version on the same bf16 inputs: max(2 x plain error, 2e-2)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -161,11 +164,22 @@ def check_flash_kernel(fa, gen) -> dict:
         (2, 2, 70, 90, 100, False, None, bf16, "dense"),
         (2, 2, 70, 90, 100, False, None, bf16, "slice"),
         (2, 3, 130, 130, 64, True, None, bf16, "offset"),
+        # float32 head dims, rows off 16 bytes (element-wise loader) and row
+        # tails inside a 16-byte chunk
         (2, 2, 70, 90, 36, False, None, f32, "dense"),
+        (2, 2, 70, 90, 32, False, None, f32, "dense"),
+        (2, 2, 70, 90, 33, False, [90, 5], f32, "dense"),
+        (2, 2, 70, 90, 34, False, [90, 5], f32, "slice"),
+        (2, 4, 200, 200, 128, True, None, f32, "split"),
+        (2, 3, 130, 130, 64, True, None, f32, "offset"),
+        (2, 2, 70, 90, 100, False, None, f32, "offset"),
         # the serving path's single requests at the three buckets
         (1, 8, 631, 631, 64, False, None, bf16, "split"),
         (1, 8, 193, 193, 64, False, None, bf16, "split"),
         (1, 8, 17, 17, 64, False, None, bf16, "split"),
+        (1, 8, 631, 631, 64, False, None, f32, "split"),
+        (1, 8, 193, 193, 64, False, None, f32, "split"),
+        (1, 8, 17, 17, 64, False, None, f32, "split"),
     ]
     errors = {}
     for b, h, nq, nk, dh, causal, lens, dtype, layout in cases:
@@ -180,6 +194,10 @@ def check_flash_kernel(fa, gen) -> dict:
             tol = 1e-4
             ok = err <= tol
             note = f"max|kernel-plain| {err:.3e} (tol {tol:g})"
+            if layout == "split" and (b, h, nq, dh) == SERVING_SHAPES[0]:
+                exact = attention_f64(q, k, v, scale)
+                note += (f"; max|kernel-f64| {(got.double() - exact).abs().max().item():.3e}, "
+                         f"max|plain-f64| {(plain.double() - exact).abs().max().item():.3e}")
         else:
             ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), scale=scale,
                                            causal=causal, kv_lens=kv_lens)
@@ -212,7 +230,7 @@ def time_flash(fa, gen) -> dict:
     """Per dtype, per serving shape (split-head layout, unmasked): the
     kernel's, the plain version's and scaled_dot_product_attention's time
     (a yardstick the port never calls), L2-warm and L2-cold, beside the
-    bound."""
+    bound; and the device kernels that the library call ran (its backend)."""
     timings = {}
     for dtype in (torch.bfloat16, torch.float32):
         rows = []
@@ -226,7 +244,8 @@ def time_flash(fa, gen) -> dict:
                     q, k, v, scale=scale),
             }
             bound, bound_by = attention_bound_ms(q, k)
-            row = {"shape": [b, h, n, dh], "bound_ms": bound, "bound_by": bound_by}
+            row = {"shape": [b, h, n, dh], "bound_ms": bound, "bound_by": bound_by,
+                   "library_kernels": device_kernel_names(calls["library_ms"])}
             for key, fn in calls.items():
                 row[key] = time_ms(fn)
                 row[key + "_l2_cold"] = time_ms(fn, cold=True)
@@ -444,9 +463,15 @@ def main() -> int:
     sass = sass_ops(library)
     for name, ops in sass.items():
         log(f"[build] sass {name}: {ops}")
-    bf16_kernels = [ops for name, ops in sass.items() if name.startswith("flash_fwd_bf16")]
-    if len(bf16_kernels) != 4 or any(ops["HGMMA"] == 0 for ops in bf16_kernels):
-        raise AssertionError("the bfloat16 flash kernels must run on the tensor cores (HGMMA)")
+    for name, count in HGMMA.items():
+        got = sass.get(name, {}).get("HGMMA", 0)
+        if got != count:
+            raise AssertionError(f"{name} must run on the tensor cores: {count} HGMMA "
+                                 f"expected, {got} found")
+    lib = fa.bind(library)
+    log("[build] blocks per SM (occupancy calculator): " + ", ".join(
+        f"{dtype} dh {dh}: {lib.texocr_flash_attention_blocks_per_sm(code, dh)}"
+        for dtype, code in (("float32", 0), ("bfloat16", 1)) for dh in (64, 128)))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errors = check_flash_kernel(fa, gen)
@@ -462,7 +487,8 @@ def main() -> int:
     for dtype, name, instruction, launches, path in (
         (torch.bfloat16, "flash_attention_bf16", "wgmma (HGMMA)", served["launches"],
          "serve (bfloat16 flagship)"),
-        (torch.float32, "flash_attention_f32", "FFMA", f32_launches, "golden (float32)"),
+        (torch.float32, "flash_attention_f32", "wgmma tf32 x3 (HGMMA)", f32_launches,
+         "golden (float32)"),
     ):
         serving_shape = timings[dtype][0]
         kernels.append(dict(

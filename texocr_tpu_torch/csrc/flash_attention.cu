@@ -10,8 +10,9 @@
 //
 // What bounds it: at the encoder's shapes (N = 631, dh = 64) the work is
 // 4 * N^2 * dh operations against 4 * N * dh elements moved, about 160 operations
-// per element, so the ideal kernel is bound by operations: in bfloat16, by the
-// tensor cores.
+// per element, so the ideal kernel is bound by operations, in both types by the
+// tensor cores: bfloat16 at 989 TFLOP/s, float32 as three TF32 products at
+// 495 TFLOP/s (0.0066 and 0.0395 ms at (8, 8, 631, 64) on an H100 SXM).
 //
 // Two kernels, chosen by the input type:
 //
@@ -36,11 +37,41 @@
 // head's K and V from L2) and a persistent, warp-specialised schedule are
 // later work.
 //
-// float32: `flash_fwd_f32`, plain float32 FMAs from shared memory (256 threads,
-// each owning 4 query rows x 4 key columns). float32 is not on the serving path;
-// it stays off the tensor cores because the golden check on the card runs in
-// float32 with TF32 disabled and needs exact greedy tokens, which a TF32 product
-// would not give.
+// float32: `flash_fwd_f32`, both products on the tensor cores with
+// `wgmma.mma_async` m64n64k8 (TF32 in, float32 accumulate), each split into
+// three TF32 products (3xTF32): x = big + small, big = tf32(x) and
+// small = tf32(x - big) (`cvt.rna`), and A B = As Bb + Ab Bs + Ab Bb, summed in
+// that order in float32. The dropped As Bs is about 2^-22 of A B, so the result
+// keeps float32-level accuracy: the float32 golden check needs exact greedy
+// tokens, which one TF32 product would not give. One warpgroup per (64-query
+// tile, head, batch), as in bfloat16. TF32 wgmma reads both shared-memory
+// operands K-major only (PTX gives the transpose bit to 16-bit types alone), so
+// - K tiles (and Q's at D = 128) are stored as 64-row x 32-float sub-tiles with
+//   the 128-byte swizzle above (a k8 step is 32 bytes, like a bfloat16 k16
+//   step), each as its big and its small part. At D = 64 Q's parts live in
+//   registers instead, as the A operand of S = Q K^T (64 registers a thread; at
+//   D = 128 they would take 128), which halves what S reads from shared memory;
+// - V is stored transposed (dh x keys), big and small. Within every 8 keys,
+//   positions 0-3 hold keys 0, 2, 4, 6 and positions 4-7 keys 1, 3, 5, 7: the TF32
+//   register A fragment gives quad lane c columns (c, c + 4) where S's
+//   accumulator fragment holds (2c, 2c + 1), so with V's keys in that order P is
+//   split in registers and fed back as the A operand of O += P V unshuffled.
+// Raw tiles land by 16-byte `cp.async` (zero-filled past Nq, Nk and dh; rows off
+// 16 bytes element by element, chosen at launch). K lands in place of its big
+// part and is split in place once per tile (Q once per block); V lands in a raw
+// buffer that a split pass turns into V^T. The split passes overlap the tensor
+// cores: V's runs while they form S = Q K^T, and the next tile's K's (its copies
+// issued once S is done, when K's and raw V's buffers are free) while they form
+// P V. Shared memory: 5 tiles of 64 x D float32 at D = 64, 80 KB (registers,
+// 254 a thread, hold an SM to two blocks), and 7 at D = 128, 224 KB (one
+// block). The online softmax is the bfloat16 kernel's (base 2, `ex2.approx`,
+// scale * log2 e folded into the logits); P stays unnormalised and unrounded
+// beyond its split. Each tile's P V is summed from zero on the tensor cores
+// and added to O with an FMA, and the output is scaled by 1 / (the float32 row
+// sum) at the end.
+//
+// Tried on an H100 and not kept (PERF.md): two warpgroups on a 128-query tile
+// sharing one split pass of K and V (5% slower at batch 8, 26% at one image).
 //
 // Semantics follow the plain math path (texocr_tpu_torch/ops/attention_core.py):
 // logits and softmax in float32; a key is masked when col >= kv_lens[b] or, if
@@ -53,10 +84,11 @@
 // One deliberate difference in precision: the TPU kernel and the math path round
 // the normalised probabilities P to the input type before the PV product (an
 // online softmax knows the normaliser only after the last key tile). In float32
-// the FMA kernel keeps P unnormalised and unrounded, and agrees with the math path
-// to rounding. In bfloat16 the tensor-core kernel rounds P to bf16 unnormalised,
-// against the running max, and divides by the float32 row sum (of the unrounded
-// P) at the end; its error against float32 is of the size of the math path's.
+// the kernel keeps P unnormalised and unrounded (beyond its 3xTF32 split), and
+// agrees with the math path to rounding. In bfloat16 the tensor-core kernel
+// rounds P to bf16 unnormalised, against the running max, and divides by the
+// float32 row sum (of the unrounded P) at the end; its error against float32 is
+// of the size of the math path's.
 //
 // bfloat16 rows of any alignment: when q, k and v all start on 16 bytes and
 // their batch, head and row strides are multiples of 8 elements, the tiles load
@@ -110,186 +142,6 @@ cudaError_t allow_dynamic_smem(std::atomic<unsigned long long>& done, const void
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return err;
-}
-
-// ---------------------------------------------------------------------------
-// float32: FMA kernel
-// ---------------------------------------------------------------------------
-
-constexpr int F32_THREADS = 256;  // a 16 x 16 grid of threads
-constexpr int ROWS = BLOCK_Q / 16;  // query rows per thread
-constexpr int COLS = BLOCK_K / 16;  // key columns per thread
-
-// Copies `rows_valid` rows of `dh` floats into a 64 x D tile of shared memory
-// (row pitch `pitch`), zero-filling the rest so ragged edges add nothing.
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, int pitch, const float* src,
-                                              long long row_stride, int rows_valid, int dh) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += F32_THREADS) {
-    const int r = idx / D;
-    const int c = idx % D;
-    float val = 0.f;
-    if (r < rows_valid && c < dh) val = src[r * row_stride + c];
-    dst[r * pitch + c] = val;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(F32_THREADS)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
-              const int* __restrict__ kv_lens, int nq, int nk, int dh, Strides qs, Strides ks,
-              Strides vs, Strides os, float scale, int causal) {
-  constexpr int QK_PITCH = D + 1;  // odd pitch: 16 key rows read in one step hit 16 banks
-  constexpr int V_PITCH = D;
-  constexpr int P_PITCH = BLOCK_K + 1;
-  constexpr int DC = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + BLOCK_Q * QK_PITCH;
-  float* v_s = k_s + BLOCK_K * QK_PITCH;
-  float* p_s = v_s + BLOCK_K * V_PITCH;
-
-  const int q0 = blockIdx.x * BLOCK_Q;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  int kv_len = nk;
-  if (kv_lens != nullptr) kv_len = min(max(kv_lens[b], 0), nk);
-  // Key tiles that no row of this block may attend are skipped. A row with no
-  // valid key (kv_len == 0) softmaxes to uniform over all nk keys, so it walks
-  // every tile.
-  int k_end = nk;
-  if (kv_len > 0) {
-    k_end = kv_len;
-    if (causal) k_end = min(k_end, q0 + BLOCK_Q);
-  }
-
-  const float* qb = q + b * qs.b + h * qs.h + (long long)q0 * qs.n;
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
-  load_tile_f32<D>(q_s, QK_PITCH, qb, qs.n, min(BLOCK_Q, nq - q0), dh);
-
-  float acc[ROWS][DC];
-  float m_run[ROWS];
-  float l_run[ROWS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < k_end; k0 += BLOCK_K) {
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    const int k_rows = min(BLOCK_K, nk - k0);
-    load_tile_f32<D>(k_s, QK_PITCH, kb + (long long)k0 * ks.n, ks.n, k_rows, dh);
-    load_tile_f32<D>(v_s, V_PITCH, vb + (long long)k0 * vs.n, vs.n, k_rows, dh);
-    __syncthreads();
-
-    float s[ROWS][COLS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[ROWS], kv[COLS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) qv[i] = q_s[(ty * ROWS + i) * QK_PITCH + d];
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) kv[j] = k_s[(tx + 16 * j) * QK_PITCH + d];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int row = q0 + ty * ROWS + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (col >= nk) {
-          x = -INFINITY;
-        } else if (col >= kv_len || (causal && col > row)) {
-          x = -FLT_MAX;
-        }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // The tile's first key is < nk, so mx >= -FLT_MAX is finite and no
-      // (-inf) - (-inf) arises; the first tile's alpha is exp(-inf) = 0.
-      const float m_new = fmaxf(m_run[i], mx);
-      const float alpha = expf(m_run[i] - m_new);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        s[i][j] = p;
-        row_sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-      l_run[i] = l_run[i] * alpha + row_sum;
-      m_run[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) p_s[(ty * ROWS + i) * P_PITCH + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BLOCK_K; ++kk) {
-      float pv[ROWS], vv[DC];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) pv[i] = p_s[(ty * ROWS + i) * P_PITCH + kk];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = v_s[kk * V_PITCH + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-  }
-
-  float* ob = o + b * os.b + h * os.h;
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int row = q0 + ty * ROWS + i;
-    if (row >= nq) continue;
-    const float inv = 1.f / l_run[i];
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < dh) ob[row * os.n + col] = acc[i][c] * inv;
-    }
-  }
-}
-
-template <int D>
-cudaError_t launch_f32(const Args& a) {
-  constexpr int smem = ((BLOCK_Q + BLOCK_K) * (D + 1) + BLOCK_K * D + BLOCK_Q * (BLOCK_K + 1)) *
-                       (int)sizeof(float);
-  static std::atomic<unsigned long long> smem_set{0};
-  cudaError_t err =
-      allow_dynamic_smem(smem_set, reinterpret_cast<const void*>(flash_fwd_f32<D>), smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.nq + BLOCK_Q - 1) / BLOCK_Q, a.heads, a.batch);
-  flash_fwd_f32<D><<<grid, F32_THREADS, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.kv_lens, a.nq, a.nk, a.dh,
-      a.qs, a.ks, a.vs, a.os, a.scale, a.causal);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -639,10 +491,455 @@ cudaError_t launch_bf16(const Args& a) {
   return cudaGetLastError();
 }
 
-// Whether an operand's rows all start on 16 bytes.
-bool rows_aligned16(const void* p, const Strides& st) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 8 == 0 && st.h % 8 == 0 &&
-         st.n % 8 == 0;
+// Whether an operand's rows all start on 16 bytes (`per16` elements).
+bool rows_aligned16(const void* p, const Strides& st, int per16 = 8) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % per16 == 0 && st.h % per16 == 0 &&
+         st.n % per16 == 0;
+}
+
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 wgmma kernel
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float4 ld_shared_f4(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(addr)
+               : "memory");
+  return x;
+}
+__device__ __forceinline__ void st_shared_u4(uint32_t addr, uint32_t a, uint32_t b, uint32_t c,
+                                             uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c),
+               "r"(d)
+               : "memory");
+}
+
+// x = big + small + O(2^-22 |x|): big = tf32(x) (10 mantissa bits, ties away
+// from zero, low 13 bits zero), small = tf32(x - big); x - big is exact.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  big &= 0xffffe000u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
+}
+
+// Byte offset of 16-byte chunk c (floats 4c .. 4c + 3) of row r in a raw
+// 64 x D float32 tile. Q and K (V_RAW false): the wgmma K-major layout, 64-row x
+// 32-float sub-tiles, 128-byte swizzle, as in bfloat16. V (V_RAW true): rows of
+// 4D bytes, chunk c at c ^ 2 ((r / 8) % 4), so that the transposing split pass
+// reads 8 different banks in each quarter warp.
+template <int D, bool V_RAW>
+__device__ __forceinline__ uint32_t f32_chunk(uint32_t r, uint32_t c) {
+  if constexpr (V_RAW) return r * (4 * D) + ((c ^ (2 * ((r / 8) % 4))) << 4);
+  return (c / 8) * SUB_BYTES + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+}
+
+// Rows [row0, row0 + 64) of a (rows, dh) float32 matrix into a raw tile at
+// `dst`; rows >= rows_total and columns >= dh read as 0. vec: rows start on 16
+// bytes, each chunk is one asynchronous copy (a row's last chunk copies only its
+// floats inside dh). Otherwise each chunk is read element by element and stored
+// synchronously. Thread `tid` copies chunk tid % (D / 4) of every
+// (128 / (D / 4))-th row.
+//
+// `tid` is threadIdx.x made opaque to the compiler once per key tile by the
+// caller: from threadIdx.x itself the compiler hoists every loader's and split
+// pass's addresses out of the key loop and holds them in registers, which
+// spilled at D = 128.
+template <int D, bool V_RAW>
+__device__ __forceinline__ void load_tile_f32(uint32_t dst, const float* src, long long row_stride,
+                                              int row0, int rows_total, int dh, bool vec,
+                                              uint32_t tid) {
+  constexpr uint32_t CHUNKS = D / 4;  // 16-byte chunks per row
+  constexpr uint32_t STEP = WG_THREADS / CHUNKS;  // rows apart of one thread's chunks
+  const uint32_t c = tid % CHUNKS;
+  const uint32_t r0 = tid / CHUNKS;
+  const int n = min(max(dh - 4 * (int)c, 0), 4);  // floats of the chunk inside dh
+  const float* g = src + (long long)(row0 + (int)r0) * row_stride + 4 * c;
+  if (vec) {
+#pragma unroll
+    for (uint32_t i = 0; i < 64 / STEP; ++i) {
+      const uint32_t r = r0 + STEP * i;
+      const bool in = row0 + (int)r < rows_total && n > 0;
+      cp_async16(dst + f32_chunk<D, V_RAW>(r, c), in ? g : src, in ? 4 * n : 0);
+      g += STEP * row_stride;
+    }
+  } else {
+#pragma unroll 1
+    for (uint32_t i = 0; i < 64 / STEP; ++i) {
+      const uint32_t r = r0 + STEP * i;
+      const int m = row0 + (int)r < rows_total ? n : 0;
+      const uint32_t* e = reinterpret_cast<const uint32_t*>(m > 0 ? g : src);
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = j < m ? e[j] : 0u;
+      st_shared_u4(dst + f32_chunk<D, V_RAW>(r, c), w[0], w[1], w[2], w[3]);
+      g += STEP * row_stride;
+    }
+  }
+}
+
+// Splits a 64 x D tile in place into its big part, and writes its small part
+// to `small` at the same offsets (the split is element-wise, so any order of
+// the chunks serves; this one is free of bank conflicts).
+template <int D>
+__device__ __forceinline__ void split_tile(uint32_t big, uint32_t small, uint32_t tid) {
+  constexpr int PER_THREAD = 64 * D / 4 / WG_THREADS;
+#pragma unroll
+  for (int i = 0; i < PER_THREAD; ++i) {
+    const uint32_t off = 16 * (tid + WG_THREADS * i);
+    const float4 x = ld_shared_f4(big + off);
+    uint32_t b[4], s[4];
+    split_tf32(x.x, b[0], s[0]);
+    split_tf32(x.y, b[1], s[1]);
+    split_tf32(x.z, b[2], s[2]);
+    split_tf32(x.w, b[3], s[3]);
+    st_shared_u4(big + off, b[0], b[1], b[2], b[3]);
+    st_shared_u4(small + off, s[0], s[1], s[2], s[3]);
+  }
+}
+
+// Splits the raw V tile (64 keys x D, `f32_chunk<D, true>`) into V^T big and
+// small: D rows (dh) x 64 keys, K-major, row n of key sub-tile ks (keys
+// 32 ks .. 32 ks + 31) in 64-row x 128-byte sub-tile 2 (n / 64) + ks, with the
+// 128-byte swizzle; within each 8 keys, positions 0-3 hold keys 0, 2, 4, 6 and
+// positions 4-7 keys 1, 3, 5, 7. Each thread moves 8 keys x 4 columns per pass:
+// 8 reads and 8 + 8 writes of 16 bytes, each hitting 8 different bank groups
+// in every quarter warp.
+template <int D>
+__device__ __forceinline__ void split_v_transposed(uint32_t raw, uint32_t vt_big,
+                                                   uint32_t vt_small, uint32_t tid) {
+  const uint32_t bit = tid & 1;
+  const uint32_t grp = (tid >> 1) & 3;  // 8-key group g = 4 * half + grp
+  const uint32_t half = (tid >> 3) & 1;  // key sub-tile
+  const uint32_t hc = tid >> 4;
+#pragma unroll
+  for (uint32_t pass = 0; pass < D / 64; ++pass) {
+    const uint32_t cg = 16 * pass + 2 * hc + bit;  // columns 4 cg .. 4 cg + 3
+    float x[8][4];
+#pragma unroll
+    for (uint32_t key = 0; key < 8; ++key) {
+      const float4 r = ld_shared_f4(raw + f32_chunk<D, true>(8 * (4 * half + grp) + key, cg));
+      x[key][0] = r.x;
+      x[key][1] = r.y;
+      x[key][2] = r.z;
+      x[key][3] = r.w;
+    }
+#pragma unroll
+    for (uint32_t j = 0; j < 4; ++j) {
+      const uint32_t n = 4 * cg + j;
+      const uint32_t row = ((n / 64) * 2 + half) * SUB_BYTES + (n % 64) * 128;
+#pragma unroll
+      for (uint32_t s = 0; s < 2; ++s) {
+        const uint32_t parity = s ^ bit;  // even keys or odd keys
+        const uint32_t off = row + (((2 * grp + parity) ^ (n % 8)) << 4);
+        uint32_t b[4], sm[4];
+        // A select, not x[2 e + parity]: a register array takes no runtime index.
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(parity ? x[2 * e + 1][j] : x[2 * e][j], b[e], sm[e]);
+        st_shared_u4(vt_big + off, b[0], b[1], b[2], b[3]);
+        st_shared_u4(vt_small + off, sm[0], sm[1], sm[2], sm[3]);
+      }
+    }
+  }
+}
+
+// d (64 x 64, f32) = A B (+ d if accumulate), TF32: A and B from shared memory,
+// both K-major.
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_ACC32 ", %32, %33, p, 1, 1;\n}\n"
+      : WG_ACC32_ARGS(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) = A B (+ d if accumulate), TF32: A (64 x 8) from
+// registers, B from shared memory, K-major.
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_ACC32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : WG_ACC32_ARGS(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
+}
+
+// O += P V for one part of P (registers, as S's accumulator fragment) and one
+// part of V^T. The TF32 A fragment of k-step kk (keys 8 kk .. 8 kk + 7) gives
+// thread t rows r and r + 8 (r = 16 (t / 32) + (t % 32) / 4) at columns c and
+// c + 4 (c = t % 4), in the order (r, c), (r + 8, c), (r, c + 4), (r + 8, c + 4);
+// S's registers 4 kk .. 4 kk + 3 hold (r, 2c), (r, 2c + 1), (r + 8, 2c),
+// (r + 8, 2c + 1), which are those places once V^T's keys are in the order
+// `split_v_transposed` stores them.
+template <int SUB>
+__device__ __forceinline__ void wgmma_pv_tf32(float (&acc)[SUB][32], const uint32_t (&p)[32],
+                                              uint32_t vt) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int n = 0; n < SUB; ++n)
+      wgmma_rs_tf32(acc[n], p[4 * kk], p[4 * kk + 2], p[4 * kk + 1], p[4 * kk + 3],
+                    smem_desc(vt + (2 * n + kk / 4) * SUB_BYTES + (kk % 4) * 32, 16, 1024), 1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o,
+              const int* __restrict__ kv_lens, int nq, int nk, int dh, Strides qs, Strides ks,
+              Strides vs, Strides os, float scale_log2, int causal, int vec) {
+  constexpr int SUB = D / 64;  // 64-column blocks of O
+  constexpr int TILE = 64 * D * 4;  // one 64 x D float32 tile
+  constexpr int KSTEPS = D / 8;  // k8 steps of Q K^T
+  // At D = 64 Q's parts live in registers (the note at the top). Tile offsets
+  // from the base; Q's raw tile lands at Q_RAW.
+  constexpr bool Q_REGS = D == 64;
+  constexpr int Q_TILES = Q_REGS ? 0 : 2;
+  constexpr int Q_SMALL = TILE, K_BIG = Q_TILES * TILE, K_SMALL = K_BIG + TILE,
+                VT_BIG = K_BIG + 2 * TILE, VT_SMALL = K_BIG + 3 * TILE, V_RAW = K_BIG + 4 * TILE,
+                Q_RAW = Q_REGS ? VT_BIG : 0;  // V^T is written first after Q is read
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // The swizzle acts on address bits, so every sub-tile starts on 1024 bytes.
+  const uint32_t smem = (smem_addr(smem_raw) + 1023u) & ~1023u;
+
+  const int q0 = blockIdx.x * BLOCK_Q;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row_lo = q0 + 16 * warp + lane / 4;  // rows row_lo and row_lo + 8
+  const int col_q = 2 * (lane % 4);
+
+  int kv_len = nk;
+  if (kv_lens != nullptr) kv_len = min(max(kv_lens[b], 0), nk);
+  // Key tiles that no row of this block may attend are skipped. A row with no
+  // valid key (kv_len == 0) softmaxes to uniform over all nk keys, so it walks
+  // every tile.
+  int k_end = nk;
+  if (kv_len > 0) {
+    k_end = kv_len;
+    if (causal) k_end = min(k_end, q0 + BLOCK_Q);
+  }
+  const int n_tiles = (k_end + BLOCK_K - 1) / BLOCK_K;
+
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  load_tile_f32<D, false>(smem + Q_RAW, qb, qs.n, q0, nq, dh, vec, threadIdx.x);
+  load_tile_f32<D, false>(smem + K_BIG, kb, ks.n, 0, nk, dh, vec, threadIdx.x);
+  load_tile_f32<D, true>(smem + V_RAW, vb, vs.n, 0, nk, dh, vec, threadIdx.x);
+  cp_async_commit();
+
+  float s[32];
+  float acc[SUB][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < SUB; ++n) acc[n][i] = 0.f;
+  }
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // this thread's partial row sums
+  // Q's A fragments (Q_REGS): k-step kk in registers 4 kk .. 4 kk + 3, as in
+  // `wgmma_pv_tf32`'s note: (r, c), (r + 8, c), (r, c + 4), (r + 8, c + 4) of
+  // columns 8 kk .. 8 kk + 7.
+  uint32_t qa_big[Q_REGS ? 4 * KSTEPS : 1], qa_small[Q_REGS ? 4 * KSTEPS : 1];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BLOCK_K;
+    uint32_t tid = threadIdx.x;
+    asm volatile("" : "+r"(tid));  // see load_tile_f32
+    const uint32_t q_big = smem, q_small = smem + Q_SMALL, k_big = smem + K_BIG,
+                   k_small = smem + K_SMALL, vt_big = smem + VT_BIG, vt_small = smem + VT_SMALL,
+                   v_raw = smem + V_RAW;
+    if (t == 0) {
+      cp_async_wait<0>();  // Q and the first K and V have landed
+      __syncthreads();
+      if constexpr (Q_REGS) {
+#pragma unroll
+        for (int i = 0; i < 4 * KSTEPS; ++i) {
+          const uint32_t row = 16 * warp + lane / 4 + 8 * (i % 2);
+          const uint32_t col = 8 * (i / 4) + lane % 4 + 4 * ((i / 2) % 2);
+          float x;
+          asm volatile("ld.shared.f32 %0, [%1];\n"
+                       : "=f"(x)
+                       : "r"(smem + Q_RAW + f32_chunk<D, false>(row, col / 4) + 4 * (col % 4)));
+          split_tf32(x, qa_big[i], qa_small[i]);
+        }
+        __syncthreads();  // Q's raw tile lies where V^T's big part goes
+      } else {
+        split_tile<D>(q_big, q_small, tid);
+      }
+      split_tile<D>(k_big, k_small, tid);  // later tiles' K is split during P V
+    }
+    // Written by this thread's stores, read by the tensor cores: make the
+    // writes visible to the async proxy, then to the whole warpgroup.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // S = Q K^T = Qs Kb + Qb Ks + Qb Kb
+    pin(s);
+    wgmma_fence();
+#pragma unroll
+    for (int part = 0; part < 3; ++part) {
+      const uint32_t qp = part == 0 ? q_small : q_big;
+      const uint32_t kp = part == 1 ? k_small : k_big;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const uint32_t off = (kk / 4) * SUB_BYTES + (kk % 4) * 32;
+        if constexpr (Q_REGS) {
+          const uint32_t(&qa)[4 * KSTEPS] = part == 0 ? qa_small : qa_big;
+          wgmma_rs_tf32(s, qa[4 * kk], qa[4 * kk + 1], qa[4 * kk + 2], qa[4 * kk + 3],
+                        smem_desc(kp + off, 16, 1024), part > 0 || kk > 0);
+        } else {
+          wgmma_ss_tf32(s, smem_desc(qp + off, 16, 1024), smem_desc(kp + off, 16, 1024),
+                        part > 0 || kk > 0);
+        }
+      }
+    }
+    wgmma_commit();
+    // V's split pass runs while the tensor cores form S.
+    split_v_transposed<D>(v_raw, vt_big, vt_small, tid);
+    wgmma_wait_all();
+    pin(s);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // no warp reads K or raw V any more, and V^T is written
+    if (t + 1 < n_tiles) {  // the next K and V fly during the softmax and P V
+      load_tile_f32<D, false>(k_big, kb, ks.n, k0 + BLOCK_K, nk, dh, vec, tid);
+      load_tile_f32<D, true>(v_raw, vb, vs.n, k0 + BLOCK_K, nk, dh, vec, tid);
+      cp_async_commit();
+    }
+
+    // Online softmax on the accumulator layout, as in bfloat16, base 2.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
+    if (k0 + BLOCK_K > kv_len || (causal && k0 + BLOCK_K - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int row = row_lo + 8 * ((i / 2) % 2);
+        const int col = k0 + 8 * (i / 4) + col_q + i % 2;
+        if (col >= nk) {
+          s[i] = -INFINITY;
+        } else if (col >= kv_len || (causal && col > row)) {
+          s[i] = -FLT_MAX;
+        }
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // The tile's first key is < nk, so mx >= -FLT_MAX is finite and no
+      // (-inf) - (-inf) arises; the first tile's alpha is exp2(-inf) = 0.
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = exp2_approx(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+    float row_sum[2] = {0.f, 0.f};
+    uint32_t p_big[32], p_small[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      const float p = exp2_approx(s[i] - m_run[r]);
+      row_sum[r] += p;
+      split_tf32(p, p_big[i], p_small[i]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + row_sum[r];
+    // P V = Ps Vb + Pb Vs + Pb Vb, summed from zero and added to O with an FMA:
+    // the tensor cores' float32 sums round less exactly than an FMA, and
+    // accumulating into the running O tile after tile put the output 3.8e-6
+    // from float64 at (8, 8, 631, 64) on an H100, against 7.8e-7 this way.
+    float pv[SUB][32];
+#pragma unroll
+    for (int n = 0; n < SUB; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pv[n][i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < SUB; ++n) pin(pv[n]);
+    pin(p_big);
+    pin(p_small);
+    wgmma_fence();
+    wgmma_pv_tf32<SUB>(pv, p_small, vt_big);
+    wgmma_pv_tf32<SUB>(pv, p_big, vt_small);
+    wgmma_pv_tf32<SUB>(pv, p_big, vt_big);
+    wgmma_commit();
+    if (t + 1 < n_tiles) {  // the next K's split pass runs while the tensor cores form P V
+      cp_async_wait<0>();  // the next K and V have landed
+      __syncthreads();
+      split_tile<D>(k_big, k_small, tid);
+    }
+    wgmma_wait_all();
+#pragma unroll
+    for (int n = 0; n < SUB; ++n) pin(pv[n]);
+#pragma unroll
+    for (int n = 0; n < SUB; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[n][i] = fmaf(acc[n][i], alpha[(i / 2) % 2], pv[n][i]);
+    pin(p_big);
+    pin(p_small);
+  }
+
+  float* ob = o + b * os.b + h * os.h;
+  // Column pairs store as one 8-byte word where o's rows start on 8 bytes and
+  // dh is even (col is even, so col < dh then covers col + 1).
+  const bool pairs = reinterpret_cast<uintptr_t>(ob) % 8 == 0 && os.n % 2 == 0 && dh % 2 == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / l;
+    const int row = row_lo + 8 * r;
+    if (row >= nq) continue;
+#pragma unroll
+    for (int n = 0; n < SUB; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * n + 8 * j + col_q;
+        const float lo = acc[n][4 * j + 2 * r] * inv;
+        const float hi = acc[n][4 * j + 2 * r + 1] * inv;
+        float* dst = ob + row * os.n + col;
+        if (pairs) {
+          if (col < dh) *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+        } else {
+          if (col < dh) dst[0] = lo;
+          if (col + 1 < dh) dst[1] = hi;
+        }
+      }
+  }
+}
+
+template <int D>
+constexpr int f32_smem_bytes() {
+  // K, V^T big and small, raw V, Q big and small at D = 128, alignment slack
+  return (D == 64 ? 5 : 7) * 64 * D * 4 + 1024;
+}
+
+template <int D>
+cudaError_t launch_f32(const Args& a) {
+  constexpr int smem = f32_smem_bytes<D>();
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err =
+      allow_dynamic_smem(smem_set, reinterpret_cast<const void*>(flash_fwd_f32<D>), smem);
+  if (err != cudaSuccess) return err;
+  const int vec = rows_aligned16(a.q, a.qs, 4) && rows_aligned16(a.k, a.ks, 4) &&
+                  rows_aligned16(a.v, a.vs, 4);
+  const dim3 grid((a.nq + BLOCK_Q - 1) / BLOCK_Q, a.heads, a.batch);
+  flash_fwd_f32<D><<<grid, WG_THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.kv_lens, a.nq, a.nk, a.dh,
+      a.qs, a.ks, a.vs, a.os, a.scale * 1.4426950408889634f, a.causal, vec);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -671,4 +968,26 @@ extern "C" int texocr_flash_attention_fwd(
                Strides{q_sb, q_sh, q_sn}, Strides{k_sb, k_sh, k_sn}, Strides{v_sb, v_sh, v_sn},
                Strides{o_sb, o_sh, o_sn}, scale, causal, static_cast<cudaStream_t>(stream)};
   return (int)(dh <= 64 ? launch<64>(a, dtype) : launch<128>(a, dtype));
+}
+
+// How many blocks of the kernel that a call with this dtype and head dim
+// launches (rows on 16 bytes) fit one SM at once, by the CUDA occupancy
+// calculator; -1 on error.
+extern "C" int texocr_flash_attention_blocks_per_sm(int dtype, int dh) {
+  if (dh <= 0 || dh > 128 || (dtype != 0 && dtype != 1)) return -1;
+  const bool d64 = dh <= 64;
+  const void* kernel =
+      dtype == 0 ? (d64 ? reinterpret_cast<const void*>(flash_fwd_f32<64>)
+                        : reinterpret_cast<const void*>(flash_fwd_f32<128>))
+                 : (d64 ? reinterpret_cast<const void*>(flash_fwd_bf16<64, true>)
+                        : reinterpret_cast<const void*>(flash_fwd_bf16<128, true>));
+  const int smem = dtype == 0 ? (d64 ? f32_smem_bytes<64>() : f32_smem_bytes<128>())
+                              : 5 * 64 * (d64 ? 64 : 128) * 2 + 1024;
+  int blocks = -1;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, WG_THREADS, smem) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
 }

@@ -13,6 +13,47 @@ import torch
 SERVING_SHAPES = [(8, 8, 631, 64), (1, 8, 631, 64), (1, 8, 193, 64), (1, 8, 17, 64)]
 L2_FLUSH_BYTES = 128 << 20  # written between launches for L2-cold timings (L2: 50 MB)
 
+# H100 SXM data sheet: dense tensor-core peaks and memory rate.
+H100_BF16_FLOPS = 989e12
+H100_TF32_FLOPS = 495e12
+H100_BYTES_PER_S = 3.35e12
+
+
+def attention_bound_ms(q, k) -> tuple:
+    """Least time for one unmasked attention call on an H100 SXM, and what
+    sets it: q, k, v and o each moved once at 3.35 TB/s, against
+    4 * Nq * Nk * dh operations per (batch, head) on the tensor cores,
+    bfloat16 at 989 TFLOP/s or float32 as three TF32 products (3xTF32) at
+    495 TFLOP/s."""
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    flops = 4.0 * b * h * nq * nk * dh
+    if q.dtype == torch.bfloat16:
+        t_ops = flops / H100_BF16_FLOPS * 1e3
+    else:
+        t_ops = 3 * flops / H100_TF32_FLOPS * 1e3
+    t_bytes = (2 * nq + 2 * nk) * b * h * dh * q.element_size() / H100_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def attention_f64(q, k, v, scale) -> torch.Tensor:
+    """Unmasked attention in float64: the yardstick of the float32 kernel's
+    and the plain float32 version's errors."""
+    q, k, v = (t.double() for t in (q, k, v))
+    return torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1) @ v
+
+
+def device_kernel_names(fn) -> list:
+    """Names of the device kernels one call of ``fn`` runs (torch.profiler):
+    which backend a library call took."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
 
 def split_heads(gen, b, h, n, dh, dtype):
     """(B, H, N, dh) views of a (B, N, H * dh) tensor, as the encoder hands

@@ -6,14 +6,17 @@ self-attention: at the full (160, 1008) canvas, (B, 8, 631, 64) per layer.
 
 What bounds it on the H100: per (batch, head) the work is 4 * Nq * Nk * dh
 operations on (2 * Nq + 2 * Nk) * dh elements, about 160 operations per element
-at N = 631, dh = 64, so a good kernel is bound by operations (about 0.82 us per
-image-layer in bfloat16 on the tensor cores). The TPU kernel keeps a whole
-(batch, head) of K/V in VMEM; a Hopper block has at most 227 KB of shared
-memory, so ``csrc/flash_attention.cu`` walks K/V in 64-key tiles with an online
-softmax and never writes the scores to device memory. bfloat16 runs both
-products on the tensor cores (``wgmma``, 16-byte ``cp.async`` loads into
-swizzled shared memory, P fed back from registers); float32 uses plain FMAs,
-which keeps the float32 golden tokens exact. The source says more.
+at N = 631, dh = 64, so a good kernel is bound by operations on the tensor
+cores: about 0.82 us per image-layer in bfloat16 (989 TFLOP/s), 4.9 us in
+float32, whose products each take three TF32 products (495 TFLOP/s). The TPU
+kernel keeps a whole (batch, head) of K/V in VMEM; a Hopper block has at most
+227 KB of shared memory, so ``csrc/flash_attention.cu`` walks K/V in 64-key
+tiles with an online softmax and never writes the scores to device memory.
+Both types run both products on the tensor cores (``wgmma``, 16-byte
+``cp.async`` loads into swizzled shared memory, P fed back from registers).
+float32 splits every operand into a TF32 big and small part and sums three
+TF32 products (3xTF32), which keeps float32 accuracy and the float32 golden
+tokens exact; one TF32 product would not. The source says more.
 
 - ``flash_attention_plain``: the same function in plain PyTorch.
 - ``flash_attention``: the plain version for a CPU tensor; for a CUDA tensor
@@ -110,6 +113,10 @@ def bind(path) -> ctypes.CDLL:
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
+    if hasattr(lib, "texocr_flash_attention_blocks_per_sm"):  # not in older sources
+        occupancy = lib.texocr_flash_attention_blocks_per_sm
+        occupancy.argtypes = [ctypes.c_int, ctypes.c_int]
+        occupancy.restype = ctypes.c_int
     return lib
 
 
