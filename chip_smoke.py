@@ -26,8 +26,25 @@ Phases, each fatal on failure:
      encode and a DECODE_STEPS-step greedy decode, wall time (host clock) and
      device kernels (torch.profiler).
   7. encoder: kernel path against the plain path at the full canvas, float32.
-Then one JSON line of per-kernel numbers, the card's name and power limit, and
-the last line {"ok": true, "device": {...}}.
+  8. train: texocr_tpu_torch.training.loop.train_model on the card, the
+     flagship at full width in bfloat16 with config/config.yml's training keys
+     (batch 128, Adam at lr 5e-4, seq_pad_multiple 32, masked loss, shuffles,
+     seed 42), on a synthetic pickled dataset (two full batches of (160, 1008)
+     canvases and one of (64, 512), a val split of one full batch), 2 epochs
+     with a checkpoint each, augmentation on as the training CLI has it. Fatal
+     checks: finite epoch losses (a non-finite step would make its epoch's
+     mean non-finite), the second epoch's below the first's, exactly 4 flash
+     launches per train step and per eval step, encoder gradients on the kernel
+     path against the plain path (float32 and bfloat16, 8 full canvases), the
+     bf16 kernel against its plain version at the training shape (phase 3
+     holds it at both training buckets too), and the losses of two steps
+     after loading the checkpoint against two steps without the save. Prints
+     step time (median, least and most per bucket), images/s, the host
+     loader's time per batch alone, peak memory, a profiled step (device time
+     over that call's own wall time) and the kernel at the training shape
+     beside its bound, the library call and the math-path backward.
+Then the seconds each phase took, one JSON line of per-kernel numbers, the
+card's name and power limit, and the last line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -35,6 +52,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -63,6 +81,15 @@ HGMMA = {
 REPEATS = 3  # timed runs per request and per batch; the median is reported
 BATCH = 8  # full canvases per batch
 DECODE_STEPS = 350  # the serving default max_len; random weights never emit EOS
+TRAIN_BATCH = 128  # config/config.yml batch_size
+TRAIN_BUCKETS = (((160, 1008), 2), ((64, 512), 1))  # (canvas, batches) of the train split
+TRAIN_EPOCHS = 2
+TIMED_EPOCHS = 4  # further epochs, each step synchronised, for the step time
+TRAIN_SHAPE = (TRAIN_BATCH, 8, 631, 64)  # the encoder's self-attention, full canvases
+GRAD_IMAGES = 8  # full canvases of the kernel-path against plain-path gradient check
+GRAD_TOL = 1e-4  # relative L2 error of every encoder parameter's float32 gradient
+BF16_FLOOR = 2e-2  # least bfloat16 tolerance: kernel outputs and gradients
+RESUME_RTOL = 1e-4  # two steps after a checkpoint load against two without the save
 
 def log(msg):
     print(msg, flush=True)
@@ -180,6 +207,9 @@ def check_flash_kernel(fa, gen) -> dict:
         (1, 8, 631, 631, 64, False, None, f32, "split"),
         (1, 8, 193, 193, 64, False, None, f32, "split"),
         (1, 8, 17, 17, 64, False, None, f32, "split"),
+        # the training path's batches: full canvases and the (64, 512) bucket
+        (128, 8, 631, 631, 64, False, None, bf16, "split"),
+        (128, 8, 129, 129, 64, False, None, bf16, "split"),
     ]
     errors = {}
     for b, h, nq, nk, dh, causal, lens, dtype, layout in cases:
@@ -199,15 +229,8 @@ def check_flash_kernel(fa, gen) -> dict:
                 note += (f"; max|kernel-f64| {(got.double() - exact).abs().max().item():.3e}, "
                          f"max|plain-f64| {(plain.double() - exact).abs().max().item():.3e}")
         else:
-            ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), scale=scale,
-                                           causal=causal, kv_lens=kv_lens)
-            err = (got.float() - ref).abs().max().item()
-            plain_err = (plain.float() - ref).abs().max().item()
-            tol = max(2 * plain_err, 2e-2)
+            err, tol, note = hold_bf16(fa, got, plain, q, k, v, scale, causal, kv_lens)
             ok = err <= tol
-            vs_plain = (got.float() - plain.float()).abs().max().item()
-            note = (f"max|kernel-f32| {err:.3e}, max|plain-f32| {plain_err:.3e} (tol {tol:.3e}); "
-                    f"max|kernel-plain| {vs_plain:.3e}, max|f32| {ref.abs().max().item():.3e}")
         ok = ok and bool(torch.isfinite(got).all())
         if layout != "dense":
             dense = fa.flash_attention(*(t.clone(memory_format=torch.contiguous_format)
@@ -224,6 +247,21 @@ def check_flash_kernel(fa, gen) -> dict:
         if layout == "split" and (b, h, nq, dh) == SERVING_SHAPES[0]:
             errors[dtype] = err
     return errors
+
+
+def hold_bf16(fa, got, plain, q, k, v, scale, causal=False, kv_lens=None):
+    """The bf16 kernel's output ``got`` and the plain bf16 version's ``plain``
+    against the plain float32 version on the same bf16 inputs: (the kernel's
+    error, its tolerance max(2 x the plain bf16 error, BF16_FLOOR), a note)."""
+    ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), scale=scale,
+                                   causal=causal, kv_lens=kv_lens)
+    err = (got.float() - ref).abs().max().item()
+    plain_err = (plain.float() - ref).abs().max().item()
+    tol = max(2 * plain_err, BF16_FLOOR)
+    vs_plain = (got.float() - plain.float()).abs().max().item()
+    note = (f"max|kernel-f32| {err:.3e}, max|plain-f32| {plain_err:.3e} (tol {tol:.3e}); "
+            f"max|kernel-plain| {vs_plain:.3e}, max|f32| {ref.abs().max().item():.3e}")
+    return err, tol, note
 
 
 def time_flash(fa, gen) -> dict:
@@ -355,10 +393,12 @@ def serve(fa, rng):
             "engine": engine, "batch": batch}
 
 
-def device_kernels(fn) -> dict:
+def device_kernels(fn, span=None) -> dict:
     """One call of ``fn`` under torch.profiler: its wall time (host clock,
     profiled), the device time summed over its kernels, their count, and the
-    8 kernels that take the most device time."""
+    8 kernels that take the most device time. With ``span``, also the device
+    time of the kernels run under host-side events whose name ends with it,
+    summed per event name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -368,15 +408,21 @@ def device_kernels(fn) -> dict:
         wall_s = time.perf_counter() - t0
     by_name = {}
     count = 0
+    spans = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
             count += 1
+        elif span is not None and e.name.endswith(span):
+            spans[e.name] = spans.get(e.name, 0.0) + e.device_time_total * 1e-6
     if count == 0:
         raise AssertionError("torch.profiler recorded no device kernels")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"profiled_wall_s": wall_s, "device_s": sum(by_name.values()), "kernels": count,
-            "top": [{"name": n[:90], "s": s} for n, s in top]}
+    result = {"profiled_wall_s": wall_s, "device_s": sum(by_name.values()), "kernels": count,
+              "top": [{"name": n[:90], "s": s} for n, s in top]}
+    if span is not None:
+        result["span_device_s"] = spans
+    return result
 
 
 def profile_serving(engine, batch) -> dict:
@@ -443,6 +489,290 @@ def check_encoder_paths(rng):
         raise AssertionError("encoder kernel path disagrees with the plain path")
 
 
+def event_ms(fn, iters=5) -> float:
+    """Device time of one call of ``fn`` between two CUDA events over
+    ``iters`` calls, after one call to warm up: for calls long enough that
+    the host's launch cost does not count (autograd cannot be graph-captured
+    here)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def train_tokens(rng, n) -> list:
+    """``n`` token-id sequences of 40-250 ids, drawn with a 1/rank skew over
+    the 997 ids below the specials (LaTeX tokens are skewed so; the loss can
+    fall below the uniform ln 997 in a few steps)."""
+    p = 1.0 / np.arange(1, 998)
+    p /= p.sum()
+    order = rng.permutation(997)
+    return [order[rng.choice(997, size=int(rng.integers(40, 251)), p=p)].tolist()
+            for _ in range(n)]
+
+
+def write_train_data(root, rng) -> None:
+    """train/val/test pickles in the JAX package's payload format under
+    ``root``: the train split holds TRAIN_BUCKETS, val one full batch of full
+    canvases, test eight small canvases (unused)."""
+    from texocr_tpu_torch.data.dataset import ImageDataset
+
+    splits = {"train": [(hw, n * TRAIN_BATCH) for hw, n in TRAIN_BUCKETS],
+              "val": [((160, 1008), TRAIN_BATCH)], "test": [((64, 512), 8)]}
+    for split, buckets in splits.items():
+        images = [canvas(rng, h, w) for (h, w), n in buckets for _ in range(n)]
+        os.makedirs(os.path.join(root, split))
+        ImageDataset.from_arrays(images, train_tokens(rng, len(images))).save(
+            os.path.join(root, split, f"{split}set.pkl"))
+
+
+def train_config(save_dir) -> dict:
+    """The flagship with config/config.yml's training keys; max_length and
+    vocab_size come from the dataset, as for the training CLI."""
+    from texocr_tpu_torch.config import FLAGSHIP
+
+    config = {k: v for k, v in FLAGSHIP.items() if k not in ("max_length", "vocab_size")}
+    config.update(
+        batch_size=TRAIN_BATCH, batch_shuffle=True, id_shuffle=True, drop_last=True,
+        keep_small=False, n_epochs=TRAIN_EPOCHS, optimizer="Adam",
+        optimizer_args={"lr": 0.0005, "weight_decay": 0.0}, loss_fn="CrossEntropyLoss",
+        save_checkpoint=True, save_dir=save_dir, save_freq=1, val_freq=1, seed=42,
+        mask_pad_loss=True, seq_pad_multiple=32, dtype="bfloat16",
+    )
+    return config
+
+
+def check_train_grads(fa, rng) -> dict:
+    """One loss and backward on the same GRAD_IMAGES full canvases through
+    the flagship from the same weights, in float32 and in bfloat16, each
+    with flash on (FlashAttentionFunction: the kernel forward, the math-path
+    backward) and off (the math path both ways); TF32 is off and cuDNN
+    deterministic. Fatal: a float32 encoder parameter's gradient on the
+    kernel path more than GRAD_TOL (relative L2) from the plain path's; a
+    bfloat16 one further from the float32 plain path's than max(2 x the
+    bfloat16 plain path's distance, BF16_FLOOR). Returns the worst of each."""
+    from texocr_tpu_torch.config import FLAGSHIP, ModelConfig
+    from texocr_tpu_torch.data.dataset import BatchCollator
+    from texocr_tpu_torch.models import OCRModel
+    from texocr_tpu_torch.training.losses import sequence_ce_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    batch = [(1.0 - canvas(rng, 160, 1008)[..., None].astype(np.float32) / 255.0, ids)
+             for ids in train_tokens(rng, GRAD_IMAGES)]
+    images, labels = BatchCollator(999, 998, 997, seq_pad_multiple=32)(batch)
+    images, labels = torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()
+    grads = {}
+    for dtype in ("float32", "bfloat16"):
+        for use_flash in (True, False):
+            cfg = ModelConfig.from_dict(dict(FLAGSHIP, dtype=dtype, use_flash_attention=use_flash))
+            model = OCRModel(cfg, device="cuda", seed=0)
+            fa.flash_attention.launches = 0
+            logits, shifted = model(images, labels)
+            sequence_ce_loss(logits, shifted, pad_token=999).backward()
+            if fa.flash_attention.launches != (4 if use_flash else 0):
+                raise AssertionError(f"flash={use_flash}: {fa.flash_attention.launches} launches")
+            grads[dtype, use_flash] = {k: p.grad.double()
+                                       for k, p in model.encoder.named_parameters()}
+            del model, logits
+    torch.backends.cudnn.deterministic = False
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+    exact = grads["float32", False]
+    worst = {"float32": (0.0, None, GRAD_TOL), "bfloat16": (0.0, None, BF16_FLOOR)}  # err, key, tol
+    failed = []
+    for key, ref in exact.items():
+        err = rel(grads["float32", True][key], ref)
+        if not err <= GRAD_TOL:
+            failed.append(("float32", key, err, GRAD_TOL))
+        if not np.isfinite(err) or err > worst["float32"][0]:
+            worst["float32"] = (err, key, GRAD_TOL)
+        err = rel(grads["bfloat16", True][key], ref)
+        tol = max(2 * rel(grads["bfloat16", False][key], ref), BF16_FLOOR)
+        if not err <= tol:
+            failed.append(("bfloat16", key, err, tol))
+        if not np.isfinite(err) or err / tol > worst["bfloat16"][0] / worst["bfloat16"][2]:
+            worst["bfloat16"] = (err, key, tol)
+    f32, bf16 = worst["float32"], worst["bfloat16"]
+    log(f"[train] encoder gradients on {GRAD_IMAGES} full canvases over {len(exact)} tensors, "
+        f"relative L2: float32 kernel path vs plain path, worst {f32[0]:.3e} ({f32[1]}; tol "
+        f"{GRAD_TOL:g}); bfloat16 kernel path vs float32 plain path, nearest its tolerance "
+        f"{bf16[0]:.3e} ({bf16[1]}; tol {bf16[2]:.3e} = max(2 x bfloat16 plain path's, "
+        f"{BF16_FLOOR:g})) {'FAIL ' + str(failed[:4]) if failed else 'ok'}")
+    if failed:
+        raise AssertionError("kernel-path gradients differ from the plain path")
+    return {"float32": f32[0], "bfloat16": bf16[0], "bfloat16_tol": bf16[2]}
+
+
+def time_train_attention(fa, gen) -> dict:
+    """The bf16 kernel at TRAIN_SHAPE (split-head, L2-warm, CUDA-graph
+    replays) beside its bound, the plain version, scaled_dot_product_attention
+    and the math-path backward that FlashAttentionFunction runs there."""
+    from texocr_tpu_torch.ops.attention_core import math_attention
+
+    b, h, n, dh = TRAIN_SHAPE
+    q, k, v = (split_heads(gen, b, h, n, dh, torch.bfloat16) for _ in range(3))
+    scale = dh ** -0.5
+    err, tol, note = hold_bf16(fa, fa.flash_attention(q, k, v, scale=scale),
+                               fa.flash_attention_plain(q, k, v, scale=scale), q, k, v, scale)
+    log(f"[train] flash_attention bf16 {TRAIN_SHAPE} split-head, kernel vs plain: {note} "
+        f"{'ok' if err <= tol else 'FAIL'}")
+    if not err <= tol:
+        raise AssertionError("flash attention kernel disagrees with its plain version")
+    bound, bound_by = attention_bound_ms(q, k)
+    row = {"shape": list(TRAIN_SHAPE), "max_abs_err": err, "bound_ms": bound, "bound_by": bound_by,
+           "ms": time_ms(lambda: fa.flash_attention(q, k, v, scale=scale)),
+           "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, scale=scale), iters=5),
+           "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, k, v, scale=scale))}
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    grad_out = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+    def backward():
+        out = math_attention(qg, kg, vg, scale=scale)
+        torch.autograd.grad(out, (qg, kg, vg), grad_out)
+
+    row["math_backward_ms"] = event_ms(backward)
+    log(f"[train] flash_attention bf16 {TRAIN_SHAPE} split-head: " + json.dumps(row))
+    return row
+
+
+def train(fa, rng) -> dict:
+    """Phase 8: the training path on the card (see the module docstring)."""
+    from texocr_tpu_torch.checkpoint.io import latest_checkpoint, load_checkpoint
+    from texocr_tpu_torch.data.dataset import create_dataloader, load_datasets, prefetch
+    from texocr_tpu_torch.models import OCRModel
+    from texocr_tpu_torch.telemetry import step_timer
+    from texocr_tpu_torch.training.loop import train_model
+    from texocr_tpu_torch.training.optimizers import get_optimizer
+    from texocr_tpu_torch.training.train_step import (
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+        put_batch,
+    )
+
+    grad_errors = check_train_grads(fa, rng)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_data(tmp, rng)
+        train_set, val_set, _ = load_datasets(tmp)
+        train_set.augment = True  # as the training CLI sets it
+        config = train_config(os.path.join(tmp, "checkpoints"))
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        model, state, history = train_model(train_set, val_set, config, metrics_path=metrics,
+                                            device="cuda")
+        run_s = time.perf_counter() - t0
+        launches = fa.flash_attention.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(metrics) as f:
+            records = [json.loads(line) for line in f]
+        train_steps = sum(r["steps"] for r in records if r["event"] == "train_epoch")
+        eval_steps = TRAIN_EPOCHS * len(create_dataloader(val_set, config))
+        log(f"[train] train_model: {TRAIN_EPOCHS} epochs, {train_steps} train and {eval_steps} "
+            f"eval steps in {run_s:.1f} s; epoch losses {history}; flash launches {launches}; "
+            f"peak memory {peak_gb:.2f} GB")
+        if not (len(history) == TRAIN_EPOCHS and np.isfinite(history).all()):
+            raise AssertionError(f"non-finite training loss: {history}")
+        if not history[1] < history[0]:
+            raise AssertionError(f"the loss did not fall: {history}")
+        if launches != 4 * (train_steps + eval_steps):
+            raise AssertionError(f"expected 4 flash launches per step, got {launches} for "
+                                 f"{train_steps} train and {eval_steps} eval steps")
+
+        # Resume: two steps from the checkpoint against two more on the state.
+        train_step = make_train_step(mask_pad=True)
+        small = next(b for b in create_dataloader(train_set, config)
+                     if b[0].shape[1:3] == TRAIN_BUCKETS[1][0])
+        images, labels = put_batch(*small, "cuda")
+        restored = load_checkpoint(latest_checkpoint(config["save_dir"]))
+        model2 = OCRModel(model.config, device="cuda", seed=1)
+        model2.load_state_dict(restored["model"])
+        opt2 = get_optimizer("Adam", config["optimizer_args"], model2.parameters())
+        opt2.load_state_dict(restored["optimizer"])
+        state2 = create_train_state(model2, opt2, seed=config["seed"])
+        state2.step = restored["step"]
+        resumed = [train_step(state2, images, labels)["loss"].item() for _ in range(2)]
+        del model2, opt2, state2, restored
+        kept = [train_step(state, images, labels)["loss"].item() for _ in range(2)]
+        ok = np.allclose(resumed, kept, rtol=RESUME_RTOL, atol=0)
+        log(f"[train] resume: losses of two steps after loading the checkpoint {resumed}, "
+            f"without the save {kept} (rtol {RESUME_RTOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("resumed training differs from uninterrupted training")
+
+        # The host loader alone (augmentation and collation, no device), one pass.
+        t0 = time.perf_counter()
+        n_loaded = sum(1 for _ in create_dataloader(train_set, config, seed_offset=TRAIN_EPOCHS))
+        loader_s = (time.perf_counter() - t0) / n_loaded
+
+        # Step time: further epochs, each step synchronised (data waits excluded).
+        by_bucket = {}
+        loader = create_dataloader(train_set, config, seed_offset=TRAIN_EPOCHS + 1)
+        for _ in range(TIMED_EPOCHS):
+            for host_images, host_labels in prefetch(iter(loader)):
+                images, labels = put_batch(host_images, host_labels, "cuda")
+                torch.cuda.synchronize()
+                fa.flash_attention.launches = 0
+                timed = {}
+                with step_timer(timed, sync=images):
+                    loss = train_step(state, images, labels)["loss"]
+                if fa.flash_attention.launches != 4 or not torch.isfinite(loss):
+                    raise AssertionError(f"train step: {fa.flash_attention.launches} launches, "
+                                         f"loss {loss.item()}")
+                by_bucket.setdefault(tuple(images.shape[1:3]), []).append(timed["seconds"])
+        full = tuple(TRAIN_BUCKETS[0][0])
+        step_s = {f"{h}x{w}": {"median": float(np.median(t)), "min": min(t), "max": max(t),
+                           "steps": len(t)} for (h, w), t in by_bucket.items()}
+        eval_step = make_eval_step(mask_pad=True)
+        host_images, host_labels = next(iter(create_dataloader(val_set, config)))
+        val_images, val_labels = put_batch(host_images, host_labels, "cuda")
+        fa.flash_attention.launches = 0
+        eval_step(state.model, val_images, val_labels).item()
+        if fa.flash_attention.launches != 4:
+            raise AssertionError(f"eval step: {fa.flash_attention.launches} flash launches")
+
+        # One profiled full-canvas step.
+        full_batch = next(b for b in create_dataloader(train_set, config)
+                          if b[0].shape[1:3] == full)
+        images, labels = put_batch(*full_batch, "cuda")
+        prof = device_kernels(lambda: train_step(state, images, labels),
+                              span="FlashAttentionFunctionBackward")
+        backward_s = max(prof["span_device_s"].values(), default=0.0)
+        median_full = float(np.median(by_bucket[full]))
+        result = {
+            "train_model_s": run_s, "epoch_losses": history, "epochs": records,
+            "launches": launches, "launches_per_step": launches / (train_steps + eval_steps),
+            "peak_memory_gb": peak_gb, "grad_rel_l2": grad_errors,
+            "step_s": step_s, "images_per_s_full": TRAIN_BATCH / median_full,
+            "loader_s_per_batch": loader_s,
+            "profile": {**prof,
+                        "device_busy_share": prof["device_s"] / prof["profiled_wall_s"],
+                        "math_backward_share": backward_s / prof["device_s"]},
+            "resume_losses": [resumed, kept],
+        }
+    log(f"[train] step (synchronised, over {TIMED_EPOCHS} epochs) {step_s} s, "
+        f"{TRAIN_BATCH / median_full:.1f} images/s at (160, 1008); host loader alone "
+        f"{loader_s:.3f} s per batch; peak memory {peak_gb:.2f} GB; profiled full step "
+        f"{prof['device_s'] * 1e3:.1f} ms on the device in {prof['profiled_wall_s'] * 1e3:.1f} "
+        f"ms wall, {100 * result['profile']['device_busy_share']:.1f}% busy, attention's "
+        f"math-path backward {100 * result['profile']['math_backward_share']:.1f}%")
+    log("[train] " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -473,15 +803,26 @@ def main() -> int:
         f"{dtype} dh {dh}: {lib.texocr_flash_attention_blocks_per_sm(code, dh)}"
         for dtype, code in (("float32", 0), ("bfloat16", 1)) for dh in (64, 128)))
 
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errors = check_flash_kernel(fa, gen)
-    timings = time_flash(fa, gen)
-    f32_launches = check_golden(fa)
+    errors = phase("kernels", check_flash_kernel, fa, gen)
+    timings = phase("kernel timing", time_flash, fa, gen)
+    f32_launches = phase("golden", check_golden, fa)
     rng = np.random.default_rng(0)
-    served = serve(fa, rng)
-    profile_serving(served["engine"], served["batch"])
+    served = phase("serve", serve, fa, rng)
+    phase("profile", profile_serving, served["engine"], served["batch"])
     del served["engine"]
-    check_encoder_paths(rng)
+    phase("encoder", check_encoder_paths, rng)
+    trained = phase("train", train, fa, rng)
+    train_row = phase("train timing", time_train_attention, fa, gen)
+    log("[time] seconds per phase " + json.dumps(phase_s))
 
     kernels = []
     for dtype, name, instruction, launches, path in (
@@ -505,9 +846,13 @@ def main() -> int:
                 "ms_l2_cold", "plain_ms_l2_cold", "library_ms_l2_cold")},
             shapes=timings[dtype],
         ))
+    kernels[0].update(train_launches_per_step=trained["launches_per_step"],
+                      train_launches=trained["launches"], train_shape=train_row)
     log(json.dumps({"kernels": kernels}))
     log(f"[serve] median per-request s {served['request_s']}, batch img/s "
         f"{BATCH / served['batch_s']} on {card}")
+    log(f"[train] step s {trained['step_s']}, {trained['images_per_s_full']} images/s at "
+        f"(160, 1008), peak memory {trained['peak_memory_gb']} GB on {card}")
     log(card_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports nothing of JAX or texocr_tpu, and
-its serving path, chip_smoke.py and tools/flash_kernel_ab.py need neither PIL,
-PyYAML nor regex."""
+its serving path, its training path on a pickled dataset, chip_smoke.py and
+tools/flash_kernel_ab.py need neither PIL, PyYAML nor regex."""
 
 import os
 import re
@@ -11,7 +11,7 @@ import textwrap
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.join(REPO, "texocr_tpu_torch")
 
-_CHILD = textwrap.dedent(
+_BLOCKER = textwrap.dedent(
     """
     import importlib, importlib.util, pkgutil, sys
 
@@ -27,7 +27,11 @@ _CHILD = textwrap.dedent(
             return None
 
     sys.meta_path.insert(0, Blocker())
+    """
+)
 
+_CHILD = _BLOCKER + textwrap.dedent(
+    """
     import numpy as np
     import torch
     import texocr_tpu_torch
@@ -93,3 +97,52 @@ def test_no_jax_or_reference_imports_in_port_sources():
             if pattern.search(f.read()):
                 offenders.append(script)
     assert not offenders, offenders
+
+
+_TRAIN_CHILD = _BLOCKER + textwrap.dedent(
+    """
+    import os, tempfile
+    import numpy as np
+    import torch
+    from texocr_tpu_torch.data.dataset import ImageDataset, load_datasets
+    from texocr_tpu_torch.training.loop import train_model
+
+    rng = np.random.default_rng(0)
+    images = [np.where(rng.random((32, 64)) < 0.1, 0, 255).astype(np.uint8) for _ in range(4)]
+    tokens = [list(rng.integers(0, 990, 5)) for _ in range(4)]
+    tmp = tempfile.mkdtemp()
+    for split in ("train", "val", "test"):
+        os.makedirs(os.path.join(tmp, split))
+        ImageDataset.from_arrays(images, tokens).save(os.path.join(tmp, split, split + "set.pkl"))
+    train, val, _ = load_datasets(tmp)
+    train.augment = True
+    config = {
+        "img_size": (32, 64), "patch_size": 16, "glu": True, "bos_token": 998,
+        "eos_token": 997, "trg_pad_idx": 999, "dtype": "float32", "batch_size": 2,
+        "n_epochs": 1, "optimizer": "Adam", "optimizer_args": {"lr": 1e-3},
+        "save_dir": os.path.join(tmp, "ckpt"), "seq_pad_multiple": 8,
+        "encoder": {"n_channels": 1, "embed_dim": 32, "num_layers": 1, "heads": 2,
+                    "resnet_depths": (1, 1, 1), "resnet_channels": (128, 128, 128),
+                    "stem_channels": 32},
+        "decoder": {"embed_dim": 32, "num_layers": 1, "heads": 2, "exp_factor": 4,
+                    "dropout": 0.1},
+    }
+    _, state, history = train_model(train, val, config, verbose=False, device="cpu")
+    assert state.step == 2 and np.isfinite(history).all(), history
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("trained", state.step, "steps")
+    """
+)
+
+
+def test_training_runs_with_jax_pil_yaml_and_regex_blocked():
+    """A pickled dataset loads and trains one epoch (two steps, augmentation
+    on) on the CPU with the blocked modules unimportable."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAIN_CHILD], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "trained 2 steps" in proc.stdout

@@ -4,11 +4,19 @@ The same YAML/dict surface as ``texocr_tpu.config`` (runtime-injected
 ``max_length`` and ``vocab_size`` included), with the port's defaults. The one
 difference: ``use_flash_attention: "auto"`` means "the model lives on a CUDA
 device", which ``resolve_flash`` decides once the device is known.
+
+Training keys, with the JAX package's defaults: ``mask_pad_loss`` (mask PAD
+labels out of the loss; false is the reference's unmasked cross entropy),
+``seq_pad_multiple`` (label batches padded up to a multiple of it), ``remat``
+(recompute each transformer sub-layer and ResNet bottleneck in the backward
+instead of storing its activations) and ``device_data`` (the device-resident
+loader, not ported yet: true raises).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Dict, Union
 
 import torch
@@ -18,6 +26,17 @@ _DEFAULTS: Dict[str, Any] = {
     "use_flash_attention": "auto",
     "kv_quant": "none",
     "self_kv_quant": "none",
+    "mask_pad_loss": True,
+    "seq_pad_multiple": 32,
+    "remat": False,
+    "device_data": False,
+    "optimizer": "Adam",
+    "optimizer_args": {"lr": 5e-4},
+    "seed": 42,
+    "save_checkpoint": True,
+    "save_dir": "checkpoints",
+    "save_freq": 1,
+    "val_freq": 1,
 }
 
 #: The flagship architecture (the reference's config/config.yml widths): embed
@@ -49,10 +68,13 @@ FLAGSHIP: Dict[str, Any] = {
 
 
 def load_config(config_path: str) -> dict:
-    """Load a YAML configuration file into a plain dict."""
-    import yaml
-
+    """Load a YAML configuration file (or a ``.json`` one, which needs no
+    PyYAML) into a plain dict."""
     with open(config_path, "r") as f:
+        if config_path.endswith(".json"):
+            return json.load(f)
+        import yaml
+
         return yaml.safe_load(f)
 
 
@@ -104,6 +126,7 @@ class ModelConfig:
     pad_token: int
     dtype: str = "bfloat16"
     use_flash_attention: Union[bool, str] = "auto"
+    remat: bool = False
 
     @staticmethod
     def from_dict(config: dict) -> "ModelConfig":
@@ -158,4 +181,44 @@ class ModelConfig:
             pad_token=config["trg_pad_idx"],
             dtype=config["dtype"],
             use_flash_attention=config["use_flash_attention"],
+            remat=bool(config["remat"]),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int
+    n_epochs: int
+    optimizer: str
+    optimizer_args: Dict[str, Any]
+    seed: int
+    save_checkpoint: bool
+    save_dir: str
+    save_freq: int
+    val_freq: int
+    mask_pad_loss: bool
+    seq_pad_multiple: int
+
+    @staticmethod
+    def from_dict(config: dict) -> "TrainConfig":
+        """The loop's keys; the loader's (``drop_last``, ``keep_small``,
+        ``batch_shuffle``, ``id_shuffle``) are read by ``create_dataloader``."""
+        config = with_defaults(config)
+        if config["device_data"]:
+            raise NotImplementedError(
+                "device_data: true (the device-resident loader) is not ported yet "
+                "(ROADMAP Queue 1 item 12); the host loader runs with device_data: false"
+            )
+        return TrainConfig(
+            batch_size=config["batch_size"],
+            n_epochs=config["n_epochs"],
+            optimizer=config["optimizer"],
+            optimizer_args=dict(config["optimizer_args"]),
+            seed=config["seed"],
+            save_checkpoint=config["save_checkpoint"],
+            save_dir=config["save_dir"],
+            save_freq=config["save_freq"],
+            val_freq=config["val_freq"],
+            mask_pad_loss=config["mask_pad_loss"],
+            seq_pad_multiple=config["seq_pad_multiple"],
         )

@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from texocr_tpu_torch.models.layers import MLP, TorchDense
 from texocr_tpu_torch.ops.attention_core import attention_core, math_attention
@@ -45,12 +46,14 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, embed_dim: int, heads: int = 8, dim_head: int = 64,
-                 dtype: torch.dtype = torch.float32, use_flash: bool = False):
+                 dtype: torch.dtype = torch.float32, use_flash: bool = False,
+                 causal: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
         self.scale = dim_head ** -0.5
         self.use_flash = use_flash
+        self.causal = causal
         self.q = TorchDense(embed_dim, inner, bias=False, dtype=dtype)
         self.k = TorchDense(embed_dim, inner, bias=False, dtype=dtype)
         self.v = TorchDense(embed_dim, inner, bias=False, dtype=dtype)
@@ -63,11 +66,30 @@ class MultiHeadAttention(nn.Module):
     def _finish(self, out_heads: torch.Tensor) -> torch.Tensor:
         return F.glu(self.fc_out(_merge_heads(out_heads)), dim=-1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Unmasked self-attention over (B, N, D)."""
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None,
+                context_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full (uncached) attention over (B, N, D): self-attention, or
+        cross-attention over ``context``. ``mask``: (B, Nq) bool query-side
+        padding mask; ``context_mask``: (B, Nk) bool key-side mask of the
+        context. The mask is their q x k outer product; for self-attention the
+        key mask is the query mask. A query row with every key masked
+        softmaxes to a uniform average (the math path fills, in bool space)."""
         q = _split_heads(self.q(x), self.heads)
-        k, v = self.project_kv(x)
-        out = attention_core(q, k, v, scale=self.scale, use_flash=self.use_flash)
+        src = x if context is None else context
+        k, v = self.project_kv(src)
+        allowed = None  # (B, 1, Nq, Nk) bool, True = may attend
+        if mask is not None or context_mask is not None:
+            q_mask = mask if mask is not None else torch.ones(
+                x.shape[:2], dtype=torch.bool, device=x.device)
+            if context is None:
+                k_mask = q_mask
+            else:
+                k_mask = context_mask if context_mask is not None else torch.ones(
+                    src.shape[:2], dtype=torch.bool, device=x.device)
+            allowed = q_mask[:, None, :, None] & k_mask[:, None, None, :]
+        out = attention_core(q, k, v, scale=self.scale, allowed=allowed, causal=self.causal,
+                             use_flash=self.use_flash)
         return self._finish(out)
 
     def step(self, x_t: torch.Tensor, cache: Dict[str, torch.Tensor], t: int) -> torch.Tensor:
@@ -92,19 +114,21 @@ class AttentionStack(nn.Module):
     double-norm residual stream."""
 
     def __init__(self, embed_dim: int, num_layers: int, heads: int = 8,
-                 dim_head: int = 64, cross_attend: bool = False,
+                 dim_head: int = 64, cross_attend: bool = False, causal: bool = False,
                  exp_factor: int = 4, dtype: torch.dtype = torch.float32,
-                 use_flash: bool = False):
+                 use_flash: bool = False, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.heads = heads
         self.dim_head = dim_head
         self.num_layers = num_layers
         self.cross_attend = cross_attend
+        self.remat = remat
         norm = nn.LayerNorm(embed_dim, eps=1e-5)
         blocks = []
         for _ in range(num_layers):
-            blocks.append(MultiHeadAttention(embed_dim, heads, dim_head, dtype, use_flash))
+            blocks.append(MultiHeadAttention(embed_dim, heads, dim_head, dtype, use_flash,
+                                             causal=causal))
             if cross_attend:
                 blocks.append(MultiHeadAttention(embed_dim, heads, dim_head, dtype, use_flash))
             blocks.append(MLP(embed_dim, exp_factor, dtype))
@@ -117,23 +141,45 @@ class AttentionStack(nn.Module):
     def _norm(self, x: torch.Tensor) -> torch.Tensor:
         return self.shared_norm(x.float()).to(self.dtype)
 
-    def _run(self, x: torch.Tensor, apply) -> torch.Tensor:
-        """norm -> block -> + residual [-> norm] over every sub-layer;
-        ``apply(j, block, h)`` runs sub-layer j."""
-        n_sub = len(self.layers)
-        for j, (_, block) in enumerate(self.layers):
-            x = apply(j, block, self._norm(x)) + x
-            if j != n_sub - 1:  # extra norm on all but the last sub-layer
-                x = self._norm(x)
+    def _sublayer(self, j: int, apply, x: torch.Tensor) -> torch.Tensor:
+        """Sub-layer j: norm -> block -> + residual [-> norm]; ``apply(j,
+        block, h)`` runs its block."""
+        x = apply(j, self.layers[j][1], self._norm(x)) + x
+        if j != len(self.layers) - 1:  # extra norm on all but the last sub-layer
+            x = self._norm(x)
         return x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Full forward of a self-attention-only stack (the encoder)."""
-        if self.cross_attend:
-            raise NotImplementedError(
-                "the teacher-forced decoder forward is not ported yet (ROADMAP)"
-            )
-        return self._run(x, lambda j, block, h: block(h))
+    def _run(self, x: torch.Tensor, apply) -> torch.Tensor:
+        for j in range(len(self.layers)):
+            x = self._sublayer(j, apply, x)
+        return x
+
+    def forward(self, x: torch.Tensor, enc: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None,
+                enc_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full forward: the encoder's self-attention stack, or the
+        teacher-forced decoder's (causal self, cross over ``enc``, MLP).
+        ``mask``: (B, N) bool padding mask of ``x``; ``enc_mask``: (B, Nk) of
+        ``enc``. With ``remat`` (and gradients on) each sub-layer runs under
+        ``torch.utils.checkpoint``: the backward recomputes it instead of
+        keeping its activations, as the JAX package's ``nn.remat`` does."""
+        if self.cross_attend and enc is None:
+            raise ValueError("Must provide enc if cross_attend is True.")
+        per = self._per_layer()
+
+        def apply(j, block, h):
+            kind = j % per
+            if kind == per - 1:
+                return block(h)
+            if kind == 1:
+                return block(h, context=enc, mask=mask, context_mask=enc_mask)
+            return block(h, mask=mask)
+
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._run(x, apply)
+        for j in range(len(self.layers)):
+            x = checkpoint(self._sublayer, j, apply, x, use_reentrant=False)
+        return x
 
     # -- cached decode ----------------------------------------------------------
 

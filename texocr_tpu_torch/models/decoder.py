@@ -1,11 +1,19 @@
-"""Causal cross-attending transformer decoder: the cached decode step.
+"""Causal cross-attending transformer decoder.
 
-Token embedding + learned absolute positional embedding -> shared-norm stack
-(causal self + cross + MLP) -> final float32 LayerNorm -> logits. The
-teacher-forced full forward waits for the training slice (ROADMAP).
+Token embedding + learned absolute positional embedding -> embed dropout ->
+shared-norm stack (causal self + cross + MLP) -> final float32 LayerNorm ->
+logits. Two paths: ``forward``, the teacher-forced full forward over (B, T)
+tokens (training), and ``step``, the cached decode step (serving).
+
+Dropout draws its mask from an explicit ``torch.Generator``: the forward is
+deterministic without one. The bits differ from the JAX package's (Philox,
+not threefry); the rate and the scaling (kept values divided by 1 - rate) are
+the same.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -13,6 +21,15 @@ from torch import nn
 from texocr_tpu_torch.config import DecoderConfig
 from texocr_tpu_torch.models.attention import AttentionStack, KVCache
 from texocr_tpu_torch.models.layers import TorchDense
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Each element kept with probability 1 - rate and divided by it, else 0
+    (flax's ``nn.Dropout``), the mask drawn from ``generator``."""
+    if rate <= 0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class PositionalEmbedding(nn.Module):
@@ -24,18 +41,42 @@ class PositionalEmbedding(nn.Module):
 
 
 class TransformerDecoder(nn.Module):
-    def __init__(self, cfg: DecoderConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: DecoderConfig, dtype: torch.dtype = torch.float32,
+                 use_flash: bool = False, remat: bool = False):
         super().__init__()
         self.config = cfg
         self.dtype = dtype
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
         self.pos_embedding = PositionalEmbedding(cfg.max_length, cfg.embed_dim)
-        # Decode steps have one query, which the flash kernel never takes.
+        # Decode steps (one query) never reach the flash kernel, and neither
+        # does a teacher-forced forward with a padding mask.
         self.attn_layers = AttentionStack(cfg.embed_dim, cfg.num_layers, cfg.heads,
-                                          cross_attend=True, exp_factor=cfg.exp_factor,
-                                          dtype=dtype)
+                                          cross_attend=True, causal=True,
+                                          exp_factor=cfg.exp_factor, dtype=dtype,
+                                          use_flash=use_flash, remat=remat)
         self.norm = nn.LayerNorm(cfg.embed_dim, eps=1e-5)
         self.to_logits = TorchDense(cfg.embed_dim, cfg.vocab_size, dtype=dtype)
+
+    def forward(self, tokens: torch.Tensor, enc: torch.Tensor,
+                mask: Optional[torch.Tensor] = None, enc_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Teacher-forced logits for (B, T) token ids -> (B, T, V). ``mask``:
+        (B, T) bool, False at PAD; ``enc_mask``: (B, Nk) bool over ``enc``.
+        ``generator`` (on the model's device) draws the embed dropout mask;
+        without one there is no dropout."""
+        t = tokens.shape[1]
+        if t > self.config.max_length:
+            raise ValueError(
+                f"sequence length {t} exceeds the positional table "
+                f"(max_length={self.config.max_length})"
+            )
+        x = (self.token_embedding(tokens).to(self.dtype)
+             + self.pos_embedding.embedding.weight[:t].to(self.dtype)[None])
+        if generator is not None:
+            x = dropout(x, self.config.dropout, generator)
+        x = self.attn_layers(x, enc=enc, mask=mask, enc_mask=enc_mask)
+        x = self.norm(x.float()).to(self.dtype)
+        return self.to_logits(x)
 
     def step(self, token_t: torch.Tensor, t: int, cache: KVCache, cross_kv) -> torch.Tensor:
         """(B,) token ids at position ``t`` -> (B, V) next-token logits;

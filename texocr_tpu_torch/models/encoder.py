@@ -19,7 +19,7 @@ from texocr_tpu_torch.models.resnet import ResNetV2
 class HybridEmbed(nn.Module):
     """Backbone + pointwise projection: (B, H, W, 1) -> (B, h, w, D)."""
 
-    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype):
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype, remat: bool = False):
         super().__init__()
         reduced = cfg.patch_size // (2 ** (len(cfg.resnet_depths) + 1))
         if reduced != 1:
@@ -28,7 +28,7 @@ class HybridEmbed(nn.Module):
                 "is supported, as in the reference factory"
             )
         self.backbone_net = ResNetV2(cfg.resnet_depths, cfg.resnet_channels,
-                                     cfg.stem_channels, cfg.n_channels, dtype)
+                                     cfg.stem_channels, cfg.n_channels, dtype, remat)
         self.proj = Conv1x1(cfg.resnet_channels[-1], cfg.embed_dim, dtype)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
@@ -39,20 +39,20 @@ class VisionEncoder(nn.Module):
     """(B, H, W, 1) image -> (B, h * w + 1, D) embeddings, CLS first."""
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32,
-                 use_flash: bool = False):
+                 use_flash: bool = False, remat: bool = False):
         super().__init__()
         self.config = cfg
         self.dtype = dtype
         self.max_h = cfg.img_size[0] // cfg.patch_size
         self.max_w = cfg.img_size[1] // cfg.patch_size
-        self.patch_embed = HybridEmbed(cfg, dtype)
+        self.patch_embed = HybridEmbed(cfg, dtype, remat)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, self.max_h * self.max_w + 1, cfg.embed_dim))
         # The reference factory passes no ff_kwargs to the encoder stack:
         # exp_factor 4.
         self.attn_layers = AttentionStack(cfg.embed_dim, cfg.num_layers, cfg.heads,
                                           exp_factor=4, dtype=dtype,
-                                          use_flash=use_flash)
+                                          use_flash=use_flash, remat=remat)
         self.norm = nn.LayerNorm(cfg.embed_dim, eps=1e-5)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:

@@ -3,9 +3,15 @@
 ``state_dict()`` gives exactly the reference PyTorch model's keys
 (``encoder.*`` and ``decoder.net.*``), so its checkpoints and the committed
 goldens load with ``strict=True``.
+
+``forward(images, targets)`` is the teacher-forced pass of training: the
+target mask is (targets != PAD), and the decoder reads targets[:, :-1] under
+that mask trimmed to match and returns the logits of targets[:, 1:].
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,9 +34,10 @@ class OCRModel(nn.Module):
         self.config = config
         dtype = DTYPES[config.dtype]
         use_flash = resolve_flash(config.use_flash_attention, device)
-        self.encoder = VisionEncoder(config.encoder, dtype, use_flash)
+        self.encoder = VisionEncoder(config.encoder, dtype, use_flash, config.remat)
         # The reference holds the decoder stack as ``decoder.net``.
-        self.decoder = nn.ModuleDict({"net": TransformerDecoder(config.decoder, dtype)})
+        self.decoder = nn.ModuleDict({"net": TransformerDecoder(
+            config.decoder, dtype, use_flash, config.remat)})
         generator = torch.Generator().manual_seed(seed)
         init_torch_default(self, generator)
         with torch.no_grad():
@@ -45,6 +52,21 @@ class OCRModel(nn.Module):
     def encode(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 1) -> (B, N_patches + 1, D)."""
         return self.encoder(images)
+
+    def target_mask(self, targets: torch.Tensor) -> torch.Tensor:
+        return targets != self.config.pad_token
+
+    def forward(self, images: torch.Tensor, targets: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced logits: (B, H, W, 1) images and (B, T) targets ->
+        (logits (B, T-1, V), labels targets[:, 1:]), the shifted pair the loss
+        is taken over. ``generator`` draws the decoder's dropout mask (none
+        without it)."""
+        trg_mask = self.target_mask(targets)
+        enc = self.encode(images)
+        logits = self.dec(targets[:, :-1], enc, mask=trg_mask[:, :-1], generator=generator)
+        return logits, targets[:, 1:]
 
     def decoder_init_cache(self, batch: int, max_len: int, device):
         return self.dec.attn_layers.init_cache(batch, max_len, device)

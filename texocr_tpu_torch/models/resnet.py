@@ -4,6 +4,11 @@ Weight-standardized convs, GroupNorm(32) + ReLU, TF-SAME padding; stem 7x7/s2
 plus a 3x3/s2 max pool, stage strides (1, 2, 2): output stride 16. The public
 functions keep the JAX package's NHWC layout ((B, H, W, C) in and out) and run
 NCHW inside. Submodule names reproduce the reference state dict's keys.
+
+``remat``: each bottleneck runs under ``torch.utils.checkpoint`` when gradients
+are on, so the backward keeps only the block-boundary activations and
+recomputes the rest (the JAX package's per-bottleneck ``nn.remat``); the early
+high-resolution feature maps dominate training memory at the full canvas.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from texocr_tpu_torch.models.layers import GroupNormAct, WSConv, max_pool_same
 
@@ -62,8 +68,9 @@ class Stage(nn.Module):
     """``depth`` bottlenecks; the first carries the stride and the projection."""
 
     def __init__(self, in_ch: int, out_ch: int, depth: int, stride: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.stage_blocks = nn.ModuleList([
             Bottleneck(in_ch if i == 0 else out_ch, out_ch, stride if i == 0 else 1,
                        use_proj=(i == 0), dtype=dtype)
@@ -71,15 +78,17 @@ class Stage(nn.Module):
         ])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.stage_blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return x
 
 
 class ResNetV2(nn.Module):
     def __init__(self, depths: Sequence[int] = (2, 4, 6),
                  channels: Sequence[int] = (256, 512, 1024), stem_channels: int = 64,
-                 in_channels: int = 1, dtype: torch.dtype = torch.float32):
+                 in_channels: int = 1, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.stem = nn.ModuleList([
             WSConv(in_channels, stem_channels, 7, stride=2, dtype=dtype),
@@ -90,7 +99,7 @@ class ResNetV2(nn.Module):
         for i, (depth, ch) in enumerate(zip(depths, channels)):
             # Stages after the first halve the grid until output stride 32.
             stride = 1 if i == 0 or curr_stride >= 32 else 2
-            stages.append(Stage(in_ch, ch, depth, stride, dtype))
+            stages.append(Stage(in_ch, ch, depth, stride, dtype, remat))
             in_ch, curr_stride = ch, curr_stride * stride
         self.stages = nn.ModuleList(stages)
 

@@ -7,9 +7,11 @@ accumulates P @ V in float32. The causal mask is right-aligned: query i attends
 keys j <= i + (Nk - Nq).
 
 ``attention_core(use_flash=True)`` sends the calls the flash kernel takes
-(``flash_attention_supported``) to ``texocr_tpu_torch.ops.flash_attention``;
-every other call takes the math path. That is a route by shape, as in the JAX
-package, not a fallback: a CUDA tensor routed to the kernel gets the kernel.
+(``flash_attention_supported``) to ``texocr_tpu_torch.ops.flash_attention``
+through ``FlashAttentionFunction`` (the kernel forward, the math path's
+backward); every other call takes the math path. That is a route by shape, as
+in the JAX package, not a fallback: a CUDA tensor routed to the kernel gets the
+kernel, with or without gradients.
 """
 
 from __future__ import annotations
@@ -39,12 +41,12 @@ def attention_core(
     """
     if use_flash:
         from texocr_tpu_torch.ops.flash_attention import (
-            flash_attention,
+            FlashAttentionFunction,
             flash_attention_supported,
         )
 
         if flash_attention_supported(q, k, allowed=allowed, causal=causal):
-            return flash_attention(q, k, v, scale=scale, causal=causal)
+            return FlashAttentionFunction.apply(q, k, v, scale, causal)
     return math_attention(q, k, v, scale=scale, allowed=allowed, causal=causal)
 
 

@@ -22,6 +22,8 @@ tokens exact; one TF32 product would not. The source says more.
 - ``flash_attention``: the plain version for a CPU tensor; for a CUDA tensor
   it launches the kernel or raises. ``flash_attention.launches`` counts the
   launches.
+- ``FlashAttentionFunction``: ``flash_attention`` under autograd, the port of
+  ``flash_attention_diff``: the kernel forward, the math path's backward.
 - ``flash_attention_supported``: the calls ``attention_core`` routes here,
   the JAX package's gate; the kernel takes every bfloat16 or float32 call
   that passes it, whatever the alignment of its rows.
@@ -186,3 +188,32 @@ def launch(lib, q, k, v, *, scale, causal=False, kv_lens=None) -> torch.Tensor:
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``flash_attention`` under autograd: the port of the JAX package's
+    ``flash_attention_diff`` (a ``custom_vjp``). The forward is the kernel (the
+    plain version on the CPU); the backward recomputes the math path,
+    ``math_attention``, from the saved q, k and v and returns its VJP, as
+    ``_fad_bwd`` returns XLA's. The JAX package has no backward kernel, so
+    neither has the port: the backward materialises the (B, H, Nq, Nk)
+    float32 scores. Under ``no_grad`` or ``inference_mode`` nothing is saved
+    and the call is the kernel's alone.
+
+    ``FlashAttentionFunction.apply(q, k, v, scale, causal)``; the output keeps
+    q's strides, as ``launch`` makes it.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, causal: bool):
+        ctx.scale, ctx.causal = scale, causal
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v, scale=scale, causal=causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = math_attention(q, k, v, scale=ctx.scale, causal=ctx.causal)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
+        return dq, dk, dv, None, None

@@ -1,0 +1,53 @@
+"""Structured metrics and honest step timing.
+
+- ``step_timer``: wall-clock timing of a block that waits for the device
+  (``torch.cuda.synchronize``) before it stops the clock, when given a CUDA
+  tensor to wait for: PyTorch returns before the device has finished.
+- ``MetricsLogger``: JSON-lines metrics (loss, token accuracy, images/s, ...)
+  to stdout and/or a file.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import time
+from typing import IO, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def step_timer(result_holder: dict, key: str = "seconds", sync: Optional[torch.Tensor] = None):
+    """Times the block into ``result_holder[key]``; with ``sync`` on a CUDA
+    device, waits for that device first."""
+    t0 = time.perf_counter()
+    yield
+    if sync is not None and sync.device.type == "cuda":
+        torch.cuda.synchronize(sync.device)
+    result_holder[key] = time.perf_counter() - t0
+
+
+class MetricsLogger:
+    """JSON-lines metrics stream: one object per event."""
+
+    def __init__(self, path: Optional[str] = None, echo: bool = True):
+        self._file: Optional[IO] = open(path, "a") if path else None
+        self._echo = echo
+        self._t0 = time.time()
+
+    def log(self, event: str, **metrics):
+        record = {"event": event, "t": round(time.time() - self._t0, 3)}
+        record.update({k: (float(v) if hasattr(v, "__float__") else v)
+                       for k, v in metrics.items()})
+        line = json.dumps(record)
+        if self._echo:
+            print(line, flush=True)
+        if self._file:
+            self._file.write(line + "\n")
+            self._file.flush()
+
+    def close(self):
+        if self._file:
+            self._file.close()
+            self._file = None

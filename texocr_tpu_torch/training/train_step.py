@@ -1,0 +1,82 @@
+"""The training step: forward, loss, backward and the optimizer update.
+
+The state is updated in place (the JAX package returns a new, donated one).
+The dropout generator of step ``s`` is seeded from (seed, s), as the JAX
+package folds the step into its dropout key, so a resumed run continues the
+mask sequence. Metrics stay on the device; reading them is the caller's sync.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from texocr_tpu_torch.models.ocr_model import OCRModel
+from texocr_tpu_torch.training.losses import sequence_ce_loss
+from texocr_tpu_torch.training.optimizers import Optimizer
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: OCRModel
+    optimizer: Optimizer
+    step: int
+    seed: int  # the dropout seed
+
+
+def create_train_state(model: OCRModel, optimizer: Optimizer, seed: int) -> TrainState:
+    return TrainState(model=model, optimizer=optimizer, step=0, seed=seed)
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The dropout generator of one step, on ``device``, seeded from (seed, step)."""
+    key = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(key)
+
+
+def _loss_and_acc(model: OCRModel, images, labels, mask_pad: bool, generator=None):
+    logits, shifted = model(images, labels, generator=generator)
+    pad = model.config.pad_token
+    loss = sequence_ce_loss(logits, shifted, pad_token=pad, mask_pad=mask_pad)
+    with torch.no_grad():
+        acc_mask = (shifted != pad) if mask_pad else torch.ones_like(shifted, dtype=torch.bool)
+        hits = (logits.argmax(-1) == shifted) & acc_mask
+        acc = hits.sum() / acc_mask.sum().clamp(min=1)
+    return loss, acc
+
+
+def make_train_step(*, mask_pad: bool = True):
+    """(state, images, labels) -> {"loss", "token_acc"}: one update of
+    ``state`` in place, with the metrics as device scalars."""
+
+    def train_step(state: TrainState, images: torch.Tensor,
+                   labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        model = state.model
+        generator = step_generator(state.seed, state.step, images.device)
+        state.optimizer.zero_grad()
+        loss, acc = _loss_and_acc(model, images, labels, mask_pad, generator)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return {"loss": loss.detach(), "token_acc": acc}
+
+    return train_step
+
+
+def make_eval_step(*, mask_pad: bool = True):
+    """(model, images, labels) -> the loss, a device scalar, without dropout."""
+
+    @torch.no_grad()
+    def eval_step(model: OCRModel, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        return _loss_and_acc(model, images, labels, mask_pad)[0]
+
+    return eval_step
+
+
+def put_batch(images: np.ndarray, labels: np.ndarray, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A host batch onto ``device``, without waiting for the copy."""
+    return (torch.from_numpy(images).to(device, non_blocking=True),
+            torch.from_numpy(labels).to(device, non_blocking=True))
