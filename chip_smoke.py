@@ -43,17 +43,56 @@ Phases, each fatal on failure:
      loader's time per batch alone, peak memory, a profiled step (device time
      over that call's own wall time) and the kernel at the training shape
      beside its bound, the library call and the math-path backward.
-Then the seconds each phase took, one JSON line of per-kernel numbers, the
-card's name and power limit, and the last line {"ok": true, "device": {...}}.
+  9. int8: a batch of 8 full canvases with kv_quant and self_kv_quant int8,
+     DECODE_STEPS steps without EOS, through TexOCR.generate_batch. Fatal:
+     the int8 caches' step logits within 5% of the largest |logit| of the
+     unquantized cache's, over each row's steps up to its first differing
+     token. Prints the share of tokens that agree, wall and device time and
+     kernels per step beside phase 6's unquantized decode.
+ 10. sample: float32, 2 full canvases, SAMPLE_CHECK_STEPS steps at temperature
+     1e-4 against greedy (a row may leave greedy only at a step whose top two
+     logits lie within 20 x temp, where the Gumbel noise can decide); bf16, 8
+     full canvases, temperature 0.3, DECODE_STEPS steps: every sampled token
+     in the top 99 of its step's logits. Prints the time.
+ 11. beam: bf16, 8 full canvases x beam 5, DECODE_STEPS steps (wall and device
+     time, kernels per step, images/s); float32 at 2 full canvases and
+     BEAM_CHECK_STEPS steps (two chunks, across an int8 merge), with and
+     without int8 self-KV: beam 1 equals greedy, and beam 5's best score
+     equals the log-prob of its tokens fed through the same cache (and,
+     unquantized, the teacher-forced forward's; models.beam.sequence_logprob)
+     within rtol 2e-4.
+ 12. http: ServingBatcher(max_batch=8) behind make_server(port=0), PNG bytes
+     from a stdlib encoder that filters rows as PIL does: a solo POST returns
+     engine(img)'s ids, then 32 POSTs (grey and RGB) of three canvas sizes at
+     concurrency 8 (JSON contract, /healthz, a 400 for a body that is no
+     image). Prints p50 and p99 latency, decode_image's time per request and
+     the batches formed.
+ 13. eval: evaluation.evaluate.test_model on a pickled test split of two
+     batches of 8 full canvases, greedy and beam 5: its metrics must equal
+     those computed from TexOCR.generate_batch on the same collated batches.
+ 14. launched shapes: every flash launch from phase 3 on is recorded (shapes,
+     type, strides, alignment, scale, causal, kv_lens) by the phase that made
+     it; each signature that phases 4-13 launched and phase 3 did not check
+     (the batcher's padded batches, the float32 checks at 2 canvases, the
+     golden model's) is held against the plain version here, on fresh
+     operands of the same strides and alignment, as phase 3 holds its cases.
+Every phase that encodes asserts 4 flash launches per encode on its main
+path. Then the seconds each phase took, one JSON line of per-kernel numbers,
+the card's name and power limit, and the last line {"ok": true, "device": {...}}.
 """
 
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
+import urllib.request
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -89,7 +128,19 @@ TRAIN_SHAPE = (TRAIN_BATCH, 8, 631, 64)  # the encoder's self-attention, full ca
 GRAD_IMAGES = 8  # full canvases of the kernel-path against plain-path gradient check
 GRAD_TOL = 1e-4  # relative L2 error of every encoder parameter's float32 gradient
 BF16_FLOOR = 2e-2  # least bfloat16 tolerance: kernel outputs and gradients
+F32_TOL = 1e-4  # float32 kernel output against its plain version
 RESUME_RTOL = 1e-4  # two steps after a checkpoint load against two without the save
+N_LAYERS = 4  # the flagship encoder's self-attention layers: flash launches per encode
+INT8_BUDGET = 0.05  # int8 step logits: max error / max |logit| (tests/test_generate.py)
+SAMPLE_CHECK_STEPS = 64  # float32 sampling at temperature 1e-4 against greedy
+TOPK = 99  # topk_filter's k at V = 1000
+BEAM = 5
+BEAM_CHECK_STEPS = 64  # two whole chunks: a beam's score covers exactly its tokens
+SCORE_RTOL = 2e-4  # beam score against its tokens' log-prob (tests/test_generate.py)
+HTTP_REQUESTS = 32
+HTTP_CONCURRENCY = 8
+EVAL_BATCH = 8
+EVAL_MAX_LEN = 276  # evaluation's decode budget (test_model's default)
 
 def log(msg):
     print(msg, flush=True)
@@ -216,22 +267,11 @@ def check_flash_kernel(fa, gen) -> dict:
         q, k, v = flash_inputs(gen, b, h, nq, nk, dh, dtype, layout)
         kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
         scale = dh ** -0.5
-        got = fa.flash_attention(q, k, v, scale=scale, causal=causal, kv_lens=kv_lens)
-        torch.cuda.synchronize()
-        plain = fa.flash_attention_plain(q, k, v, scale=scale, causal=causal, kv_lens=kv_lens)
-        if dtype == f32:
-            err = (got - plain).abs().max().item()
-            tol = 1e-4
-            ok = err <= tol
-            note = f"max|kernel-plain| {err:.3e} (tol {tol:g})"
-            if layout == "split" and (b, h, nq, dh) == SERVING_SHAPES[0]:
-                exact = attention_f64(q, k, v, scale)
-                note += (f"; max|kernel-f64| {(got.double() - exact).abs().max().item():.3e}, "
-                         f"max|plain-f64| {(plain.double() - exact).abs().max().item():.3e}")
-        else:
-            err, tol, note = hold_bf16(fa, got, plain, q, k, v, scale, causal, kv_lens)
-            ok = err <= tol
-        ok = ok and bool(torch.isfinite(got).all())
+        got, plain, err, ok, note = hold_kernel(fa, q, k, v, scale, causal, kv_lens)
+        if dtype == f32 and layout == "split" and (b, h, nq, dh) == SERVING_SHAPES[0]:
+            exact = attention_f64(q, k, v, scale)
+            note += (f"; max|kernel-f64| {(got.double() - exact).abs().max().item():.3e}, "
+                     f"max|plain-f64| {(plain.double() - exact).abs().max().item():.3e}")
         if layout != "dense":
             dense = fa.flash_attention(*(t.clone(memory_format=torch.contiguous_format)
                                          for t in (q, k, v)),
@@ -247,6 +287,89 @@ def check_flash_kernel(fa, gen) -> dict:
         if layout == "split" and (b, h, nq, dh) == SERVING_SHAPES[0]:
             errors[dtype] = err
     return errors
+
+
+def hold_kernel(fa, q, k, v, scale, causal=False, kv_lens=None):
+    """The kernel against its plain version on the same operands: float32
+    within F32_TOL, bfloat16 as ``hold_bf16`` holds it. Returns (the kernel's
+    output, the plain version's, the error, whether it holds, a note)."""
+    got = fa.flash_attention(q, k, v, scale=scale, causal=causal, kv_lens=kv_lens)
+    torch.cuda.synchronize()
+    plain = fa.flash_attention_plain(q, k, v, scale=scale, causal=causal, kv_lens=kv_lens)
+    if q.dtype == torch.float32:
+        err = (got - plain).abs().max().item()
+        ok, note = err <= F32_TOL, f"max|kernel-plain| {err:.3e} (tol {F32_TOL:g})"
+    else:
+        err, tol, note = hold_bf16(fa, got, plain, q, k, v, scale, causal, kv_lens)
+        ok = err <= tol
+    return got, plain, err, ok and bool(torch.isfinite(got).all()), note
+
+
+class LaunchLog:
+    """Every flash launch's operands, by the phase that made it: ``fa.launch``
+    is wrapped so that each launch records its signature (shapes, type,
+    strides, alignment, scale, causal, kv_lens) under ``phase``. The wrapper's
+    own count is untouched. ``check_launched`` then holds the kernel against
+    its plain version at every signature a driven path launched."""
+
+    def __init__(self, fa):
+        self.phase = None
+        self.seen = {}  # signature -> [phases, first kv_lens]
+        original = fa.launch
+
+        def launch(lib, q, k, v, *, scale, causal=False, kv_lens=None):
+            key = (tuple(q.shape), k.shape[2], str(q.dtype)[6:], float(scale), bool(causal),
+                   tuple(t.stride() for t in (q, k, v)),
+                   tuple(t.data_ptr() % 16 // t.element_size() for t in (q, k, v)),
+                   kv_lens is not None)
+            entry = self.seen.setdefault(
+                key, [set(), None if kv_lens is None else kv_lens.clone()])
+            entry[0].add(self.phase)
+            return original(lib, q, k, v, scale=scale, causal=causal, kv_lens=kv_lens)
+
+        fa.launch = launch
+
+
+def strided_operand(gen, shape, stride, offset, dtype) -> torch.Tensor:
+    """Random values on the card in a tensor of exactly these strides, that
+    starts ``offset`` elements past a 16-byte boundary."""
+    span = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+    base = torch.empty(span + offset, dtype=dtype, device="cuda")
+    t = base.as_strided(shape, stride, offset)
+    t.copy_(torch.randn(shape, device="cuda", generator=gen).to(dtype))
+    return t
+
+
+def check_launched(fa, gen, launch_log) -> dict:
+    """Phase 14: the kernel against its plain version at every launch
+    signature of the later phases that phase 3 did not check, on fresh operands of
+    the same shapes, strides and alignment. Returns, per type, the count of
+    signatures launched, those phase 3 checked and those checked here."""
+    driven = {key: entry for key, entry in launch_log.seen.items() if entry[0] - {"kernels"}}
+    summary = {}
+    for key, (phases, lens) in sorted(driven.items(), key=str):
+        shape, nk, dtype, scale, causal, strides, offsets, _ = key
+        row = summary.setdefault(dtype, {"launched": 0, "checked_in_phase_3": 0,
+                                         "checked_here": 0})
+        row["launched"] += 1
+        where = sorted(phases - {"kernels"})
+        if "kernels" in phases:
+            row["checked_in_phase_3"] += 1
+            log(f"[launched] {shape} x Nk {nk} {dtype} strides {strides} (by {where}): "
+                f"checked in phase 3")
+            continue
+        b, h, _, dh = shape
+        operands = [strided_operand(gen, (b, h, n, dh), st, off, getattr(torch, dtype))
+                    for n, st, off in zip((shape[2], nk, nk), strides, offsets)]
+        _, _, _, ok, note = hold_kernel(fa, *operands, scale, causal, lens)
+        row["checked_here"] += 1
+        log(f"[launched] {shape} x Nk {nk} {dtype} strides {strides} offsets {offsets} "
+            f"causal={causal} kv_lens={None if lens is None else lens.tolist()} (by {where}): "
+            f"{note} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("flash attention kernel disagrees with its plain version at "
+                                 "a shape a driven path launched")
+    return summary
 
 
 def hold_bf16(fa, got, plain, q, k, v, scale, causal=False, kv_lens=None):
@@ -340,13 +463,49 @@ def canvas(rng, h, w) -> np.ndarray:
     return img
 
 
-def serve(fa, rng):
-    """The flagship model at full width, bf16, seeded random weights."""
+def flagship_engine(**overrides):
+    """TexOCR on the card: the flagship at full width, bf16 unless
+    ``overrides`` say otherwise, weights from seed 0 (the same in every
+    engine)."""
     from texocr_tpu_torch.config import FLAGSHIP
     from texocr_tpu_torch.serving import TexOCR
     from texocr_tpu_torch.tokenizer import DEFAULT_VOCAB_PATH
 
-    engine = TexOCR(dict(FLAGSHIP, tokenizer_path=DEFAULT_VOCAB_PATH, seed=0), device="cuda")
+    return TexOCR(dict(FLAGSHIP, tokenizer_path=DEFAULT_VOCAB_PATH, seed=0, **overrides),
+                  device="cuda")
+
+
+def expect_launches(fa, encodes, what) -> int:
+    """The flash launches counted since the reset: N_LAYERS per encode."""
+    launches = fa.flash_attention.launches
+    if launches != N_LAYERS * encodes:
+        raise AssertionError(f"{what}: expected {N_LAYERS} flash launches per encode, got "
+                             f"{launches} for {encodes} encodes")
+    return launches
+
+
+def wall_s(fn) -> float:
+    """Median host-clock time of ``fn`` over REPEATS synchronised calls."""
+    times = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def to_input(batch) -> torch.Tensor:
+    """uint8 canvases -> the model's input on the card, as TexOCR makes it."""
+    return 1.0 - torch.from_numpy(batch).cuda().float() / 255.0
+
+
+def serve(fa, rng):
+    """The flagship model at full width, bf16, seeded random weights."""
+    from texocr_tpu_torch.config import FLAGSHIP
+
+    engine = flagship_engine()
     requests = [canvas(rng, 160, 1008), canvas(rng, 96, 512), canvas(rng, 32, 128)]
     batch = np.stack([canvas(rng, 160, 1008) for _ in range(BATCH)])[..., None]
     # Warm-up at every shape timed below, before the counted run: the first
@@ -432,7 +591,7 @@ def profile_serving(engine, batch) -> dict:
     from texocr_tpu_torch.models import greedy_decode
 
     model, cfg = engine.model, engine.model.config
-    x = 1.0 - torch.from_numpy(batch).cuda().float() / 255.0
+    x = to_input(batch)
     result = {}
     with torch.inference_mode():
         enc = model.encode(x)
@@ -442,17 +601,9 @@ def profile_serving(engine, batch) -> dict:
                           pad_token=cfg.pad_token, max_len=DECODE_STEPS)
 
         for name, fn in (("encode", lambda: model.encode(x)), ("decode", decode)):
-            times = []
-            for _ in range(REPEATS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            wall_s = float(np.median(times))
+            wall = wall_s(fn)
             prof = device_kernels(fn)
-            result[name] = {"wall_s": wall_s, "device_busy_share": prof["device_s"] / wall_s,
-                            **prof}
+            result[name] = {"wall_s": wall, "device_busy_share": prof["device_s"] / wall, **prof}
     result["decode"]["steps"] = DECODE_STEPS
     result["decode"]["wall_s_per_step"] = result["decode"]["wall_s"] / DECODE_STEPS
     result["decode"]["kernels_per_step"] = result["decode"]["kernels"] / DECODE_STEPS
@@ -517,19 +668,26 @@ def train_tokens(rng, n) -> list:
             for _ in range(n)]
 
 
-def write_train_data(root, rng) -> None:
-    """train/val/test pickles in the JAX package's payload format under
-    ``root``: the train split holds TRAIN_BUCKETS, val one full batch of full
-    canvases, test eight small canvases (unused)."""
+def write_split(root, split, buckets, rng) -> str:
+    """``root/{split}/{split}set.pkl`` in the JAX package's payload format:
+    ``buckets`` of ((H, W), images), with train_tokens labels."""
     from texocr_tpu_torch.data.dataset import ImageDataset
 
+    images = [canvas(rng, h, w) for (h, w), n in buckets for _ in range(n)]
+    os.makedirs(os.path.join(root, split))
+    path = os.path.join(root, split, f"{split}set.pkl")
+    ImageDataset.from_arrays(images, train_tokens(rng, len(images))).save(path)
+    return path
+
+
+def write_train_data(root, rng) -> None:
+    """train/val/test pickles under ``root``: the train split holds
+    TRAIN_BUCKETS, val one full batch of full canvases, test eight small
+    canvases (unused)."""
     splits = {"train": [(hw, n * TRAIN_BATCH) for hw, n in TRAIN_BUCKETS],
               "val": [((160, 1008), TRAIN_BATCH)], "test": [((64, 512), 8)]}
     for split, buckets in splits.items():
-        images = [canvas(rng, h, w) for (h, w), n in buckets for _ in range(n)]
-        os.makedirs(os.path.join(root, split))
-        ImageDataset.from_arrays(images, train_tokens(rng, len(images))).save(
-            os.path.join(root, split, f"{split}set.pkl"))
+        write_split(root, split, buckets, rng)
 
 
 def train_config(save_dir) -> dict:
@@ -773,6 +931,345 @@ def train(fa, rng) -> dict:
     return result
 
 
+def decode_profile(fn, steps) -> dict:
+    """A decode's wall time (median of REPEATS) and one profiled call's
+    device time and kernels per step."""
+    wall = wall_s(fn)
+    prof = device_kernels(fn)
+    return {"wall_s": wall, "device_s": prof["device_s"], "kernels": prof["kernels"],
+            "kernels_per_step": prof["kernels"] / steps, "steps": steps,
+            "device_busy_share": prof["device_s"] / wall, "top": prof["top"][:4]}
+
+
+def int8_phase(fa, batch, unquantized) -> dict:
+    """Phase 9: int8 cross- and self-attention K/V on 8 full canvases."""
+    from texocr_tpu_torch.models import greedy_decode
+
+    engine = flagship_engine(kv_quant="int8", self_kv_quant="int8")
+    engine.generate_batch(batch, max_len=8)  # first run at the shape
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    tokens = engine.generate_batch(batch, max_len=DECODE_STEPS)
+    torch.cuda.synchronize()
+    launches = expect_launches(fa, 1, "int8 generate_batch")
+    if tokens.shape != (BATCH, DECODE_STEPS):
+        raise AssertionError(f"int8 tokens of shape {tuple(tokens.shape)}")
+
+    model, cfg = engine.model, engine.model.config
+    ref = flagship_engine().model  # the same weights, unquantized caches
+    common = dict(bos_token=cfg.bos_token, eos_token=-1, pad_token=cfg.pad_token,
+                  max_len=DECODE_STEPS)
+    with torch.inference_mode():
+        enc = ref.encode(to_input(batch))
+    tok_ref, logits_ref = greedy_decode(ref, enc, return_logits=True, **common)
+    tok8, logits8 = greedy_decode(model, enc, return_logits=True, **common)
+    differ = tok_ref != tok8
+    first = torch.where(differ.any(1), differ.int().argmax(1), DECODE_STEPS - 1)
+    same_prefix = torch.arange(DECODE_STEPS, device=first.device)[None] <= first[:, None]
+    err = ((logits8 - logits_ref).abs().amax(-1) * same_prefix).max().item()
+    scale = logits_ref.abs().amax(-1)[same_prefix].max().item()
+    agree = 1.0 - differ.float().mean().item()
+    timing = decode_profile(lambda: greedy_decode(model, enc, **common), DECODE_STEPS)
+    ok = err / scale < INT8_BUDGET and bool(torch.isfinite(logits8).all())
+    log(f"[int8] batch {BATCH} (160, 1008) bf16, kv_quant and self_kv_quant int8, "
+        f"{DECODE_STEPS} steps: max|logit err| {err:.4f} / max|logit| {scale:.4f} = "
+        f"{err / scale:.5f} (budget {INT8_BUDGET}) over each row's steps up to its first "
+        f"differing token (first differences {first.tolist()}); tokens agreeing "
+        f"{100 * agree:.1f}%; decode {timing['wall_s']:.3f} s wall, {timing['device_s']:.3f} s "
+        f"device, {timing['kernels_per_step']:.1f} kernels per step (unquantized, phase 6: "
+        f"{unquantized['wall_s']:.3f} s, {unquantized['device_s']:.3f} s, "
+        f"{unquantized['kernels_per_step']:.1f}); flash launches {launches} for 1 encode "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("int8 decode logits outside the int8 budget")
+    return {"launches": launches, "encodes": 1, "err_ratio": err / scale,
+            "tokens_agree": agree, "first_difference": first.tolist(), "decode": timing}
+
+
+def sample_phase(fa, batch) -> dict:
+    """Phase 10: sampled decode, its limits and its filter."""
+    from texocr_tpu_torch.models import greedy_decode, sampled_decode
+
+    temp = 1e-4
+    f32 = flagship_engine(dtype="float32").model
+    cfg = f32.config
+    common = dict(bos_token=cfg.bos_token, eos_token=-1, pad_token=cfg.pad_token)
+    with torch.inference_mode():
+        enc = f32.encode(to_input(batch[:2]))
+    greedy, logits = greedy_decode(f32, enc, max_len=SAMPLE_CHECK_STEPS, return_logits=True,
+                                   **common)
+    gen = torch.Generator(device=enc.device).manual_seed(0)
+    sampled = sampled_decode(f32, enc, gen, temp=temp, max_len=SAMPLE_CHECK_STEPS, **common)
+    exact_rows, departures = 0, []
+    for row in range(2):
+        differ = (sampled[row] != greedy[row]).nonzero()
+        if len(differ) == 0:
+            exact_rows += 1
+            continue
+        t = int(differ[0])  # the prefixes agree up to here: so do the step logits
+        step = logits[row, t]
+        departures.append((row, t, (step.max() - step[sampled[row, t]]).item()))
+    del f32
+    ok_limit = all(gap <= 20 * temp for _, _, gap in departures)
+    log(f"[sample] float32, 2 full canvases, {SAMPLE_CHECK_STEPS} steps at temp {temp:g}: "
+        f"{exact_rows} of 2 rows equal greedy's tokens; departures (row, step, top logit - "
+        f"sampled token's logit) {departures} (each within 20 x temp) "
+        f"{'ok' if ok_limit else 'FAIL'}")
+    if not ok_limit:
+        raise AssertionError("sampling at a tiny temperature left greedy's argmax")
+
+    engine = flagship_engine()
+    engine.generate_batch(batch, max_len=8, mode="sample")
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    wall = wall_s(lambda: engine.generate_batch(batch, max_len=DECODE_STEPS, mode="sample"))
+    launches = expect_launches(fa, REPEATS, "sample generate_batch")
+    model = engine.model
+    with torch.inference_mode():
+        enc = model.encode(to_input(batch))
+    gen = torch.Generator(device=enc.device).manual_seed(1)
+    tokens, logits = sampled_decode(model, enc, gen, temp=0.3, max_len=DECODE_STEPS,
+                                    return_logits=True, **common)
+    above = (logits > logits.gather(-1, tokens[..., None])).sum(-1)  # (B, steps)
+    ok = bool((above < TOPK).all())
+    timing = decode_profile(lambda: sampled_decode(model, enc, gen, temp=0.3,
+                                                   max_len=DECODE_STEPS, **common),
+                            DECODE_STEPS)
+    log(f"[sample] bf16, batch {BATCH} (160, 1008), temp 0.3, {DECODE_STEPS} steps: every "
+        f"token in its step's top {TOPK} ({int(above.max())} logits above the worst) "
+        f"{'ok' if ok else 'FAIL'}; generate_batch median {wall:.3f} s, "
+        f"{BATCH / wall:.2f} img/s; decode {timing['wall_s']:.3f} s wall, "
+        f"{timing['device_s']:.3f} s device, {timing['kernels_per_step']:.1f} kernels per "
+        f"step; flash launches {launches} for {REPEATS} encodes")
+    if not ok:
+        raise AssertionError("a sampled token lies outside the top-k filter")
+    return {"launches": launches, "encodes": REPEATS, "generate_batch_s": wall,
+            "decode": timing, "tiny_temp_exact_rows": exact_rows, "departures": departures}
+
+
+def beam_phase(fa, batch) -> dict:
+    """Phase 11: beam search, timed in bf16 and checked in float32."""
+    from texocr_tpu_torch.models import beam_decode, greedy_decode
+    from texocr_tpu_torch.models.beam import sequence_logprob
+    from texocr_tpu_torch.models.generate import DECODE_CHUNK
+
+    engine = flagship_engine()
+    engine.generate_batch(batch, max_len=8, mode="beam", beam_size=BEAM)
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    wall = wall_s(lambda: engine.generate_batch(batch, max_len=DECODE_STEPS, mode="beam",
+                                                beam_size=BEAM))
+    launches = expect_launches(fa, REPEATS, "beam generate_batch")
+    model, cfg = engine.model, engine.model.config
+    with torch.inference_mode():
+        enc = model.encode(to_input(batch))
+    steps = -(-DECODE_STEPS // DECODE_CHUNK) * DECODE_CHUNK  # whole chunks (models/beam.py)
+    timing = decode_profile(lambda: beam_decode(model, enc, bos_token=cfg.bos_token,
+                                                eos_token=-1, pad_token=cfg.pad_token,
+                                                max_len=DECODE_STEPS, beam_size=BEAM), steps)
+    log(f"[beam] bf16, batch {BATCH} x beam {BEAM} (160, 1008), {DECODE_STEPS} tokens "
+        f"({steps} steps): generate_batch median {wall:.3f} s, {BATCH / wall:.2f} img/s; decode "
+        f"{timing['wall_s']:.3f} s wall, {timing['device_s']:.3f} s device, "
+        f"{timing['kernels_per_step']:.1f} kernels per step; flash launches {launches} for "
+        f"{REPEATS} encodes")
+    del engine, model
+
+    checks = {}
+    for quant in ("none", "int8"):
+        m = flagship_engine(dtype="float32", self_kv_quant=quant).model
+        c = m.config
+        common = dict(bos_token=c.bos_token, eos_token=c.eos_token, pad_token=c.pad_token,
+                      max_len=BEAM_CHECK_STEPS)
+        with torch.inference_mode():
+            enc = m.encode(to_input(batch[:2]))
+        greedy = greedy_decode(m, enc, **common)
+        beam1 = beam_decode(m, enc, beam_size=1, **common)
+        tokens, scores = beam_decode(m, enc, beam_size=BEAM, return_scores=True, **common)
+        score = dict(bos_token=c.bos_token, eos_token=c.eos_token)
+        forced = sequence_logprob(m, enc, tokens, cached=True, **score)
+        ok = (torch.equal(beam1, greedy)
+              and torch.allclose(scores, forced, rtol=SCORE_RTOL, atol=SCORE_RTOL))
+        note = (f"beam 1 {'equals' if torch.equal(beam1, greedy) else 'DIFFERS FROM'} greedy; "
+                f"beam {BEAM} scores {scores.tolist()}, its tokens through the cached step "
+                f"{forced.tolist()}")
+        if quant == "none":
+            tf = sequence_logprob(m, enc, tokens, **score)
+            ok = ok and torch.allclose(scores, tf, rtol=SCORE_RTOL, atol=SCORE_RTOL)
+            note += f", teacher-forced {tf.tolist()}"
+        checks[quant] = {"scores": scores.tolist(), "forced": forced.tolist()}
+        log(f"[beam] float32, 2 full canvases, {BEAM_CHECK_STEPS} steps, self_kv_quant "
+            f"{quant}: {note} (rtol {SCORE_RTOL:g}) {'ok' if ok else 'FAIL'}")
+        del m
+        if not ok:
+            raise AssertionError(f"beam search check failed (self_kv_quant {quant})")
+    return {"launches": launches, "encodes": REPEATS, "generate_batch_s": wall,
+            "images_per_s": BATCH / wall, "decode": timing, "checks": checks}
+
+
+def png_bytes(img: np.ndarray, rgb: bool = False) -> bytes:
+    """An 8-bit PNG of a 2-D uint8 array, grey or (``rgb``) its grey copied
+    into R, G and B, with each row's filter chosen as PIL's and libpng's
+    encoders choose it: of None, Sub, Up, Average and Paeth, the one whose
+    filtered bytes, read as signed, have the least sum of magnitudes (the
+    lowest type on a tie). Stdlib and numpy only."""
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    h, w = img.shape
+    bpp = 3 if rgb else 1
+    x = np.repeat(img, bpp, axis=1).astype(np.int32)  # (H, W * bpp) scanlines
+    up = np.vstack([np.zeros_like(x[:1]), x[:-1]])
+    left = np.hstack([np.zeros_like(x[:, :bpp]), x[:, :-bpp]])
+    upleft = np.hstack([np.zeros_like(up[:, :bpp]), up[:, :-bpp]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    filtered = np.stack([x, x - left, x - up, x - (left + up) // 2, x - paeth]) & 0xFF
+    cost = np.abs(filtered.astype(np.uint8).view(np.int8).astype(np.int32)).sum(-1)  # (5, H)
+    kind = cost.argmin(0)
+    rows = np.hstack([kind[:, None], filtered[kind, np.arange(h)]]).astype(np.uint8)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2 if rgb else 0, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
+
+
+def http_phase(fa, rng) -> dict:
+    """Phase 12: the HTTP server over the micro-batcher, greedy."""
+    from texocr_tpu_torch.serving.batcher import ServingBatcher
+    from texocr_tpu_torch.serving.http_server import make_server, serve_in_thread
+    from texocr_tpu_torch.serving.image_io import decode_image
+
+    sizes = ((160, 1008), (96, 512), (32, 128))
+    engine = flagship_engine()
+    batcher = ServingBatcher(engine, max_batch=HTTP_CONCURRENCY, max_len=DECODE_STEPS)
+    server = make_server(batcher, port=0)
+    serve_in_thread(server)
+    host, port = server.server_address[:2]
+    url = f"http://{host}:{port}"
+    # Each batch the batcher forms: (rows after padding, requests). The
+    # padding canvases are all zero; a request's canvas never is.
+    formed = []
+    generate_batch = engine.generate_batch
+
+    def recording(canvases, **kw):
+        formed.append((len(canvases), int((canvases.reshape(len(canvases), -1).max(1) > 0).sum())))
+        return generate_batch(canvases, **kw)
+
+    try:
+        batcher.warmup(sizes)
+
+        def post(data, timeout=600):
+            req = urllib.request.Request(f"{url}/ocr", data=data, method="POST",
+                                         headers={"Content-Type": "image/png"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                payload = json.loads(r.read())
+            return payload, time.perf_counter() - t0
+
+        solo = canvas(rng, *sizes[0])
+        want_ids, _ = engine(solo, max_len=DECODE_STEPS)
+        engine.generate_batch = recording
+        fa.flash_attention.launches = 0
+        payload, _ = post(png_bytes(solo))
+        if payload["tokens"] != want_ids:
+            raise AssertionError("a solo POST differs from engine(img) on the same canvas")
+        # Every other request is RGB: the server turns it to grey.
+        images = [canvas(rng, *sizes[i % 3]) for i in range(HTTP_REQUESTS)]
+        bodies = [png_bytes(img, rgb=i % 2 == 1) for i, img in enumerate(images)]
+        decode_ms = {"grey": [], "rgb": []}
+        for i, (img, body) in enumerate(zip(images, bodies)):
+            t0 = time.perf_counter()
+            grey = decode_image(body)
+            decode_ms["rgb" if i % 2 else "grey"].append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(grey, img):
+                raise AssertionError("decode_image does not return the canvas it was given")
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=HTTP_CONCURRENCY) as ex:
+            results = list(ex.map(post, bodies))
+        total_s = time.perf_counter() - t0
+        launches = expect_launches(fa, len(formed), "http")
+        for payload, _ in results:
+            if not (isinstance(payload.get("latex"), str) and payload["tokens"]
+                    and all(isinstance(t, int) and 0 <= t < 1000 for t in payload["tokens"])):
+                raise AssertionError(f"bad /ocr response: {str(payload)[:200]}")
+        with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        if not (health["status"] == "ok" and health["warm"] and health["max_batch"] == 8):
+            raise AssertionError(f"bad /healthz: {health}")
+        try:
+            post(b"this is not an image", timeout=30)
+            raise AssertionError("a body that is no image was accepted")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                raise AssertionError(f"a body that is no image gave {e.code}, not 400") from None
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.shutdown()
+    latency = [s for _, s in results]
+    requests = [n for _, n in formed[1:]]
+    result = {"requests": HTTP_REQUESTS, "concurrency": HTTP_CONCURRENCY,
+              "p50_s": float(np.percentile(latency, 50)),
+              "p99_s": float(np.percentile(latency, 99)), "total_s": total_s,
+              "requests_per_s": HTTP_REQUESTS / total_s, "batches_formed": formed[1:],
+              "mean_batch": float(np.mean(requests)), "launches": launches,
+              "encodes": len(formed),
+              "decode_image_ms": {kind: {"median": float(np.median(ms)), "max": max(ms)}
+                                  for kind, ms in decode_ms.items()}}
+    log(f"[http] solo POST equals engine(img); {HTTP_REQUESTS} POSTs of {len(sizes)} canvas "
+        f"sizes (grey and RGB PNGs, rows filtered as PIL writes them) at concurrency "
+        f"{HTTP_CONCURRENCY}, max_len {DECODE_STEPS}: p50 {result['p50_s']:.3f} s, p99 "
+        f"{result['p99_s']:.3f} s, {result['requests_per_s']:.2f} req/s; decode_image alone "
+        f"(ms, median and max of {HTTP_REQUESTS // 2} each) {result['decode_image_ms']}; formed "
+        f"batches (rows, requests) {formed[1:]} (mean {result['mean_batch']:.2f} requests); "
+        f"/healthz ok, 400 for no image; flash launches {launches} for {len(formed)} encodes ok")
+    return result
+
+
+def eval_phase(fa, rng) -> dict:
+    """Phase 13: test_model on a pickled split of two full batches."""
+    from texocr_tpu_torch.data.dataset import ImageDataset, create_dataloader
+    from texocr_tpu_torch.evaluation.evaluate import test_model
+    from texocr_tpu_torch.evaluation.metrics import batch_acc, edit_similarity, exact_match_rate
+
+    engine = flagship_engine()
+    config = {"batch_size": EVAL_BATCH, "seq_pad_multiple": 32, "seed": 42}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_split(tmp, "test", [((160, 1008), 2 * EVAL_BATCH)], rng)
+        test_set = ImageDataset.load(path)
+        for mode in ("greedy", "beam"):
+            fa.flash_attention.launches = 0
+            t0 = time.perf_counter()
+            got = test_model(test_set, engine.model, config, max_len=EVAL_MAX_LEN, verbose=False,
+                             decode_mode=mode, beam_size=BEAM)
+            seconds = time.perf_counter() - t0
+            launches = expect_launches(fa, got["batches"], f"eval {mode}")
+            loader = create_dataloader(test_set, config)
+            accs, ems, sims = [], [], []
+            for ids in loader.sampler:
+                _, labels = loader.collate([test_set[i] for i in ids])
+                u8 = np.stack([test_set.images[i] for i in ids])[..., None]
+                pred = engine.generate_batch(u8, max_len=EVAL_MAX_LEN, mode=mode,
+                                             beam_size=BEAM).cpu().numpy()
+                target = labels[:, 1:]
+                accs.append(batch_acc(pred, target, 999))
+                ems.append(exact_match_rate(pred, target, 999))
+                sims.append(edit_similarity(pred, target, 999))
+            want = {"token_acc": float(np.mean(accs)), "exact_match": float(np.mean(ems)),
+                    "edit_similarity": float(np.mean(sims)), "batches": len(accs)}
+            ok = got == want and got["batches"] == 2
+            log(f"[eval] test_model {mode}: {got} in {seconds:.1f} s; from generate_batch on the "
+                f"same batches {want}; flash launches {launches} for {got['batches']} encodes "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"test_model's {mode} metrics differ from generate_batch's")
+            out[mode] = {**got, "seconds": seconds, "launches": launches,
+                         "encodes": got["batches"]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -804,9 +1301,11 @@ def main() -> int:
         for dtype, code in (("float32", 0), ("bfloat16", 1)) for dh in (64, 128)))
 
     phase_s = {"build": time.perf_counter() - t0}
+    launch_log = LaunchLog(fa)
 
     def phase(name, fn, *args):
         t = time.perf_counter()
+        launch_log.phase = name
         out = fn(*args)
         phase_s[name] = time.perf_counter() - t
         return out
@@ -817,11 +1316,18 @@ def main() -> int:
     f32_launches = phase("golden", check_golden, fa)
     rng = np.random.default_rng(0)
     served = phase("serve", serve, fa, rng)
-    phase("profile", profile_serving, served["engine"], served["batch"])
+    profiled = phase("profile", profile_serving, served["engine"], served["batch"])
     del served["engine"]
     phase("encoder", check_encoder_paths, rng)
     trained = phase("train", train, fa, rng)
     train_row = phase("train timing", time_train_attention, fa, gen)
+    paths = {"int8": phase("int8", int8_phase, fa, served["batch"], profiled["decode"]),
+             "sample": phase("sample", sample_phase, fa, served["batch"]),
+             "beam": phase("beam", beam_phase, fa, served["batch"]),
+             "http": phase("http", http_phase, fa, rng)}
+    evaluated = phase("eval", eval_phase, fa, rng)
+    paths.update({f"eval {mode}": r for mode, r in evaluated.items()})
+    launched = phase("launched shapes", check_launched, fa, gen, launch_log)
     log("[time] seconds per phase " + json.dumps(phase_s))
 
     kernels = []
@@ -840,6 +1346,7 @@ def main() -> int:
             instruction=instruction,
             launches=launches,
             launches_path=path,
+            launch_signatures=launched.get(str(dtype)[6:], {}),
             max_abs_err=errors[dtype],
             **{key: serving_shape[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -847,10 +1354,16 @@ def main() -> int:
             shapes=timings[dtype],
         ))
     kernels[0].update(train_launches_per_step=trained["launches_per_step"],
-                      train_launches=trained["launches"], train_shape=train_row)
+                      train_launches=trained["launches"], train_shape=train_row,
+                      launches_per_path={name: {"launches": r["launches"], "encodes": r["encodes"]}
+                                         for name, r in paths.items()})
     log(json.dumps({"kernels": kernels}))
     log(f"[serve] median per-request s {served['request_s']}, batch img/s "
         f"{BATCH / served['batch_s']} on {card}")
+    log(f"[decode] batch {BATCH} x {DECODE_STEPS} steps on {card}: " + json.dumps(
+        {"greedy": profiled["decode"]["wall_s"],
+         **{name: paths[name]["decode"]["wall_s"] for name in ("int8", "sample", "beam")}})
+        + f" s wall; http p50 {paths['http']['p50_s']} s, p99 {paths['http']['p99_s']} s")
     log(f"[train] step s {trained['step_s']}, {trained['images_per_s_full']} images/s at "
         f"(160, 1008), peak memory {trained['peak_memory_gb']} GB on {card}")
     log(card_line())

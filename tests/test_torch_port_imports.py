@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: it imports nothing of JAX or texocr_tpu, and
-its serving path, its training path on a pickled dataset, chip_smoke.py and
-tools/flash_kernel_ab.py need neither PIL, PyYAML nor regex."""
+its serving path (greedy, sample, beam, int8 caches, the HTTP server and the
+serving CLI on PNG bytes), its evaluation CLI and its training path on a
+pickled dataset, chip_smoke.py and tools/flash_kernel_ab.py need neither PIL,
+PyYAML nor regex, none of which a port module imports at module level."""
 
 import os
 import re
@@ -135,6 +137,111 @@ _TRAIN_CHILD = _BLOCKER + textwrap.dedent(
     print("trained", state.step, "steps")
     """
 )
+
+
+_SERVE_CHILD = _BLOCKER + textwrap.dedent(
+    """
+    import json, os, struct, tempfile, urllib.request, zlib
+    import numpy as np
+    from texocr_tpu_torch.data.dataset import ImageDataset
+    from texocr_tpu_torch.evaluation import cli as eval_cli
+    from texocr_tpu_torch.serving import TexOCR, cli as serving_cli
+    from texocr_tpu_torch.serving.batcher import ServingBatcher
+    from texocr_tpu_torch.serving.http_server import make_server, serve_in_thread
+    from texocr_tpu_torch.serving.image_io import decode_image
+    from texocr_tpu_torch.tokenizer import DEFAULT_VOCAB_PATH
+
+    def png(arr):  # an 8-bit grey PNG, every row unfiltered
+        def chunk(kind, body):
+            return struct.pack(">I", len(body)) + kind + body + struct.pack(
+                ">I", zlib.crc32(kind + body))
+        h, w = arr.shape
+        rows = b"".join(b"\\x00" + arr[y].tobytes() for y in range(h))
+        return (b"\\x89PNG\\r\\n\\x1a\\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+    tmp = tempfile.mkdtemp()
+    config = {
+        "tokenizer_path": DEFAULT_VOCAB_PATH, "img_size": [32, 64], "patch_size": 16,
+        "glu": True, "bos_token": 998, "eos_token": 997, "trg_pad_idx": 999,
+        "dtype": "float32", "kv_quant": "int8", "self_kv_quant": "int8", "batch_size": 2,
+        "encoder": {"n_channels": 1, "embed_dim": 32, "num_layers": 1, "heads": 2,
+                    "resnet_depths": [1, 1, 1], "resnet_channels": [128, 128, 128],
+                    "stem_channels": 32},
+        "decoder": {"embed_dim": 32, "num_layers": 1, "heads": 2, "exp_factor": 4},
+    }
+    cfg_path = os.path.join(tmp, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    rng = np.random.default_rng(0)
+    arr = np.where(rng.random((20, 40)) < 0.1, 0, 255).astype(np.uint8)
+    data = png(arr)
+    assert (decode_image(data) == arr).all()
+
+    engine = TexOCR(config, device="cpu")
+    for mode in ("greedy", "sample", "beam"):
+        ids, latex = engine(arr, max_len=3, mode=mode, beam_size=2)
+        assert isinstance(latex, str), mode
+
+    batcher = ServingBatcher(engine, max_batch=2, max_len=3)
+    server = make_server(batcher, port=0)
+    serve_in_thread(server)
+    host, port = server.server_address[:2]
+    req = urllib.request.Request(f"http://{host}:{port}/ocr", data=data, method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        assert "latex" in json.loads(r.read())
+    server.shutdown()
+    batcher.shutdown()
+
+    img_path = os.path.join(tmp, "eq.png")
+    with open(img_path, "wb") as f:
+        f.write(data)
+    serving_cli.main([img_path, "--config", cfg_path, "--max_len", "3", "--device", "cpu"])
+
+    os.makedirs(os.path.join(tmp, "test"))
+    ImageDataset.from_arrays([arr, arr], [[5, 6], [7]]).save(
+        os.path.join(tmp, "test", "testset.pkl"))
+    out = eval_cli.main(eval_cli.parse_args(
+        ["-d", tmp, "--config", cfg_path, "--max_len", "4", "--device", "cpu",
+         "--decode", "beam", "--beam_size", "2"]))
+    assert out["batches"] == 1, out
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("served and evaluated")
+    """
+)
+
+
+def test_serving_and_evaluation_run_with_jax_pil_yaml_and_regex_blocked():
+    """Every decode mode with int8 caches, an HTTP POST of PNG bytes, the
+    serving CLI on a PNG file and the evaluation CLI with a .json config on
+    the CPU, with the blocked modules unimportable."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVE_CHILD], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "served and evaluated" in proc.stdout
+
+
+def test_no_module_level_pil_yaml_or_regex_imports():
+    """PIL, PyYAML and regex are imported inside the functions that need
+    them, never at the top of a port module or chip_smoke.py."""
+    pattern = re.compile(r"^(import|from)\s+(PIL|yaml|regex)(\.|\s|$)", re.MULTILINE)
+    offenders = []
+    for root, _, files in os.walk(PORT_DIR):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(root, name)
+                with open(path) as f:
+                    if pattern.search(f.read()):
+                        offenders.append(os.path.relpath(path, REPO))
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        if pattern.search(f.read()):
+            offenders.append("chip_smoke.py")
+    assert not offenders, offenders
 
 
 def test_training_runs_with_jax_pil_yaml_and_regex_blocked():

@@ -85,11 +85,14 @@ def test_canvas_capped_where_the_jax_wrapper_raises():
 
 
 def test_unported_modes_raise(engines):
+    """Every decode mode of the JAX wrapper is ported (greedy, sample, beam);
+    any other mode raises."""
     _, port = engines
     batch = port.preprocess(np.full((16, 64), 255, np.uint8))
     for mode in ("sample", "beam"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.generate_batch(batch, mode=mode)
+        assert port.generate_batch(batch, max_len=2, mode=mode).shape == (1, 2)
+    with pytest.raises(ValueError, match="unknown decode mode"):
+        port.generate_batch(batch, mode="nucleus")
 
 
 def test_default_device_is_cuda():

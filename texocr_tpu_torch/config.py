@@ -11,6 +11,12 @@ labels out of the loss; false is the reference's unmasked cross entropy),
 (recompute each transformer sub-layer and ResNet bottleneck in the backward
 instead of storing its activations) and ``device_data`` (the device-resident
 loader, not ported yet: true raises).
+
+Decode keys: ``kv_quant`` (``int8`` quantizes the cross-attention K/V once per
+sequence, per (B, H, dh) scales) and ``self_kv_quant`` (``int8`` keeps the
+self-attention prefix in int8 with per-position scales, merged chunk by
+chunk). Either is ``none`` or ``int8``; the decode raises ``ValueError`` on
+anything else.
 """
 
 from __future__ import annotations
@@ -126,6 +132,8 @@ class ModelConfig:
     pad_token: int
     dtype: str = "bfloat16"
     use_flash_attention: Union[bool, str] = "auto"
+    kv_quant: str = "none"
+    self_kv_quant: str = "none"
     remat: bool = False
 
     @staticmethod
@@ -146,11 +154,6 @@ class ModelConfig:
             raise NotImplementedError(
                 "only the cross-attending GeGLU decoder is ported (glu and cross_attend true)"
             )
-        for key in ("kv_quant", "self_kv_quant"):
-            if config[key] != "none":
-                raise NotImplementedError(
-                    f"{key}={config[key]!r} is not ported yet (ROADMAP: int8 KV)"
-                )
         enc_args = config["encoder"]
         dec_args = config["decoder"]
         encoder = EncoderConfig(
@@ -181,6 +184,8 @@ class ModelConfig:
             pad_token=config["trg_pad_idx"],
             dtype=config["dtype"],
             use_flash_attention=config["use_flash_attention"],
+            kv_quant=config["kv_quant"],
+            self_kv_quant=config["self_kv_quant"],
             remat=bool(config["remat"]),
         )
 

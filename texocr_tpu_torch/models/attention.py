@@ -16,6 +16,22 @@ GPU an in-place write of one position is cheap, so the port keeps one plain
 (B, H, T, dh) buffer per layer, writes position t in place, and attends over
 positions 0..t. The numbers agree: the JAX softmax over ``[big | hot]`` with a
 -f32max fill is a softmax over exactly those t + 1 positions.
+
+int8 caches copy the JAX package's numbers, not its layout:
+
+- ``self_kv_quant="int8"``: beside the full-precision buffer, an int8 copy
+  (B, H, T, dh) and per-position scales (B, H, T). The JAX package quantizes a
+  chunk of ``DECODE_CHUNK`` positions when it merges the chunk's hot window
+  into its prefix, so ``chunk_start`` quantizes positions [t0 - chunk, t0)
+  before step t0 and a step attends over the int8 prefix [0, t0) and the
+  full-precision positions [t0, t] with one softmax, as ``_attend_split``.
+- ``kv_quant="int8"``: the cross-attention K/V quantized once per sequence,
+  scales per (B, H, dh) over the keys; K's scale folds into q before the dot
+  and V's multiplies the output.
+
+Beam search keeps the cross-attention K/V at (B, ...) for all beams of an
+image and reorders the self-attention rows by parent (``reorder_cache``)
+where the JAX package selects rows through an ancestry one-hot.
 """
 
 from __future__ import annotations
@@ -30,8 +46,80 @@ from torch.utils.checkpoint import checkpoint
 from texocr_tpu_torch.models.layers import MLP, TorchDense
 from texocr_tpu_torch.ops.attention_core import attention_core, math_attention
 
-#: Per-layer {"k", "v"} buffers, each (B, H, T, dh).
+#: Per-layer {"k", "v"} buffers, each (B, H, T, dh); with int8 self-KV also
+#: {"k8", "v8"} (B, H, T, dh) int8 and {"sk", "sv"} (B, H, T) scales.
 KVCache = List[Dict[str, torch.Tensor]]
+
+#: Decode positions per chunk (the JAX package's ``DECODE_CHUNK``): the decode
+#: loops check their done flags on the host once per chunk, and with int8
+#: self-KV a chunk is quantized when the next one starts, so the chunk also
+#: sets which positions a step reads in int8. min(DECODE_CHUNK, max_len) for a
+#: decode of max_len steps, as in the JAX package.
+DECODE_CHUNK = 32
+
+QUANT_MODES = ("none", "int8")
+
+
+def quantize_int8(x: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization with one scale per slice along ``dim``: the
+    scale max(amax, 1e-8) / 127 in float32, values round-half-even(x / scale)
+    clipped to [-127, 127]. Returns (int8 values, the scale cast to x's type,
+    keepdim), as the JAX package stores and dequantizes it."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=dim, keepdim=True).clamp_min(1e-8) / 127.0
+    q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(x.dtype)
+
+
+def chunk_size(max_len: int, table: int) -> Tuple[int, int]:
+    """(max_len clamped to the decoder's positional table of ``table`` rows,
+    the chunk min(DECODE_CHUNK, that))."""
+    max_len = min(max_len, table)
+    return max_len, min(DECODE_CHUNK, max_len)
+
+
+def chunk_start(cache: KVCache, t: int, chunk: int) -> int:
+    """Before step ``t``: returns the int8 prefix length t0 (t rounded down
+    to a chunk), and when t starts a chunk quantizes the chunk [t0 - chunk,
+    t0) of every layer's full-precision K/V into its int8 copy, one scale per
+    position over dh (the JAX package's ``merge_hot`` on an int8 cache; an
+    unquantized cache is left as it is)."""
+    t0 = t - t % chunk
+    if t0 and t == t0:
+        for layer in cache:
+            if "k8" not in layer:
+                continue
+            for name in ("k", "v"):
+                q, scale = quantize_int8(layer[name][:, :, t0 - chunk: t0], dim=-1)
+                layer[name + "8"][:, :, t0 - chunk: t0] = q
+                layer["s" + name][:, :, t0 - chunk: t0] = scale[..., 0]
+    return t0
+
+
+def reorder_cache(cache: KVCache, rows: torch.Tensor) -> None:
+    """Beam search: row i of every buffer (full precision, int8 and scales
+    together) becomes row ``rows[i]``'s."""
+    for layer in cache:
+        for name, buf in layer.items():
+            layer[name] = buf.index_select(0, rows)
+
+
+def _attend_split(q, cache, t0: int, t: int, scale: float) -> torch.Tensor:
+    """One query over the int8 prefix [0, t0) and the full-precision positions
+    [t0, t] with one float32 softmax (the JAX package's ``_attend_split``): K's
+    scales multiply the logits after the dot, V's the probabilities after
+    their cast to the compute type. q: (B, H, 1, dh)."""
+    dtype = q.dtype
+    qf = q.float()
+    s_hot = torch.matmul(qf, cache["k"][:, :, t0: t + 1].float().transpose(-1, -2)) * scale
+    s_big = torch.matmul(qf, cache["k8"][:, :, :t0].to(dtype).float().transpose(-1, -2)) * scale
+    s_big = s_big * cache["sk"][:, :, None, :t0].float()
+    probs = torch.softmax(torch.cat([s_big, s_hot], dim=-1), dim=-1)
+    p_big = probs[..., :t0].to(dtype) * cache["sv"][:, :, None, :t0]
+    p_hot = probs[..., t0:].to(dtype)
+    out = (torch.matmul(p_big.float(), cache["v8"][:, :, :t0].to(dtype).float())
+           + torch.matmul(p_hot.float(), cache["v"][:, :, t0: t + 1].float()))
+    return out.to(dtype)
 
 
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -92,21 +180,41 @@ class MultiHeadAttention(nn.Module):
                              use_flash=self.use_flash)
         return self._finish(out)
 
-    def step(self, x_t: torch.Tensor, cache: Dict[str, torch.Tensor], t: int) -> torch.Tensor:
+    def step(self, x_t: torch.Tensor, cache: Dict[str, torch.Tensor], t: int,
+             t0: int = 0) -> torch.Tensor:
         """Cached self-attention for the token at position ``t``: writes its
-        K/V into ``cache`` in place and attends over positions 0..t."""
+        K/V into ``cache`` in place and attends over positions 0..t; with an
+        int8 cache, positions below ``t0`` (the merged chunks) in int8."""
         q = _split_heads(self.q(x_t), self.heads)  # (B, H, 1, dh)
         k, v = self.project_kv(x_t)
         cache["k"][:, :, t] = k[:, :, 0]
         cache["v"][:, :, t] = v[:, :, 0]
+        if "k8" in cache:
+            return self._finish(_attend_split(q, cache, t0, t, self.scale))
         out = math_attention(q, cache["k"][:, :, : t + 1], cache["v"][:, :, : t + 1],
                              scale=self.scale)
         return self._finish(out)
 
-    def attend_cached_kv(self, x_t: torch.Tensor, kv: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Cross-attention step against K/V precomputed once per sequence."""
-        q = _split_heads(self.q(x_t), self.heads)
-        return self._finish(math_attention(q, kv["k"], kv["v"], scale=self.scale))
+    def attend_cached_kv(self, x_t: torch.Tensor, kv: Dict[str, torch.Tensor],
+                         key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Cross-attention step against K/V precomputed once per sequence:
+        {"k", "v"} or the int8 {"k8", "v8", "sk", "sv"}, each (B, H, Nk, .).
+        ``key_mask``: (B, Nk) bool, False at padded keys. ``x_t`` holds
+        beam rows per image, (B * beam, 1, D), all attending their image's
+        unexpanded K/V."""
+        q = _split_heads(self.q(x_t), self.heads)  # (B * beam, H, 1, dh)
+        batch = kv["k8" if "k8" in kv else "k"].shape[0]
+        beam = q.shape[0] // batch
+        # (B, H, beam, dh): an image's beams are the queries of one attention.
+        q = q.view(batch, beam, self.heads, -1).transpose(1, 2)
+        allowed = None if key_mask is None else key_mask[:, None, None, :]
+        if "k8" in kv:
+            out = math_attention(q * kv["sk"], kv["k8"].to(q.dtype), kv["v8"].to(q.dtype),
+                                 scale=self.scale, allowed=allowed) * kv["sv"]
+        else:
+            out = math_attention(q, kv["k"], kv["v"], scale=self.scale, allowed=allowed)
+        out = out.transpose(1, 2).reshape(batch * beam, self.heads, 1, -1)
+        return self._finish(out)
 
 
 class AttentionStack(nn.Module):
@@ -186,36 +294,57 @@ class AttentionStack(nn.Module):
     def _per_layer(self) -> int:
         return 3 if self.cross_attend else 2
 
-    def init_cache(self, batch: int, max_len: int, device) -> KVCache:
-        """Zeroed per-layer self-attention K/V, each (B, H, max_len, dh)."""
+    def init_cache(self, batch: int, max_len: int, device, quant: str = "none") -> KVCache:
+        """Zeroed per-layer self-attention K/V, each (B, H, max_len, dh); with
+        ``quant="int8"`` also their int8 copies and per-position scales."""
+        if quant not in QUANT_MODES:
+            raise ValueError(f"unknown self kv quant mode: {quant!r}")
         shape = (batch, self.heads, max_len, self.dim_head)
-        return [
-            {"k": torch.zeros(shape, dtype=self.dtype, device=device),
-             "v": torch.zeros(shape, dtype=self.dtype, device=device)}
-            for _ in range(self.num_layers)
-        ]
+        cache = []
+        for _ in range(self.num_layers):
+            layer = {name: torch.zeros(shape, dtype=self.dtype, device=device)
+                     for name in ("k", "v")}
+            if quant == "int8":
+                for name in ("k8", "v8"):
+                    layer[name] = torch.zeros(shape, dtype=torch.int8, device=device)
+                for name in ("sk", "sv"):
+                    layer[name] = torch.zeros(shape[:3], dtype=self.dtype, device=device)
+            cache.append(layer)
+        return cache
 
-    def precompute_cross_kv(self, enc: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+    def precompute_cross_kv(self, enc: torch.Tensor,
+                            quant: str = "none") -> List[Dict[str, torch.Tensor]]:
         """Per-layer cross-attention K/V of the encoder output, each
-        (B, H, Nk, dh), computed once per sequence."""
+        (B, H, Nk, dh), computed once per sequence; with ``quant="int8"``
+        {"k8", "v8"} and their (B, H, 1, dh) scales over Nk."""
+        if quant not in QUANT_MODES:
+            raise ValueError(f"unknown kv quant mode: {quant!r}")
         per = self._per_layer()
         out = []
         for layer in range(self.num_layers):
             k, v = self.layers[layer * per + 1][1].project_kv(enc)
-            out.append({"k": k, "v": v})
+            if quant == "none":
+                out.append({"k": k, "v": v})
+                continue
+            k8, sk = quantize_int8(k, dim=2)
+            v8, sv = quantize_int8(v, dim=2)
+            out.append({"k8": k8, "v8": v8, "sk": sk, "sv": sv})
         return out
 
     def step(self, x_t: torch.Tensor, cache: KVCache, t: int,
-             cross_kv: Optional[List[Dict[str, torch.Tensor]]]) -> torch.Tensor:
-        """One decode step over the stack for (B, 1, D) input at position t."""
+             cross_kv: Optional[List[Dict[str, torch.Tensor]]],
+             enc_mask: Optional[torch.Tensor] = None, t0: int = 0) -> torch.Tensor:
+        """One decode step over the stack for (B * beam, 1, D) input at
+        position t. ``enc_mask``: (B, Nk) bool key mask of the cross-attention;
+        ``t0``: the int8 prefix's length (an int8 cache only)."""
         per = self._per_layer()
 
         def apply(j, block, h):
             layer, kind = divmod(j, per)
             if kind == 0:
-                return block.step(h, cache[layer], t)
+                return block.step(h, cache[layer], t, t0)
             if kind == 1 and self.cross_attend:
-                return block.attend_cached_kv(h, cross_kv[layer])
+                return block.attend_cached_kv(h, cross_kv[layer], key_mask=enc_mask)
             return block(h)
 
         return self._run(x_t, apply)

@@ -3,7 +3,8 @@
 Token embedding + learned absolute positional embedding -> embed dropout ->
 shared-norm stack (causal self + cross + MLP) -> final float32 LayerNorm ->
 logits. Two paths: ``forward``, the teacher-forced full forward over (B, T)
-tokens (training), and ``step``, the cached decode step (serving).
+tokens (training), and ``step``, the cached decode step (serving: greedy,
+sampled and beam).
 
 Dropout draws its mask from an explicit ``torch.Generator``: the forward is
 deterministic without one. The bits differ from the JAX package's (Philox,
@@ -78,11 +79,14 @@ class TransformerDecoder(nn.Module):
         x = self.norm(x.float()).to(self.dtype)
         return self.to_logits(x)
 
-    def step(self, token_t: torch.Tensor, t: int, cache: KVCache, cross_kv) -> torch.Tensor:
-        """(B,) token ids at position ``t`` -> (B, V) next-token logits;
-        writes position t of ``cache``."""
+    def step(self, token_t: torch.Tensor, t: int, cache: KVCache, cross_kv,
+             enc_mask: Optional[torch.Tensor] = None, t0: int = 0) -> torch.Tensor:
+        """(B * beam,) token ids at position ``t`` -> (B * beam, V) next-token
+        logits; writes position t of ``cache``. ``cross_kv`` and ``enc_mask``
+        are per image, shared by its beam rows; ``t0``: the int8
+        self-attention prefix's length."""
         x = (self.token_embedding(token_t).to(self.dtype)
              + self.pos_embedding.embedding.weight[t].to(self.dtype))[:, None, :]
-        x = self.attn_layers.step(x, cache, t, cross_kv=cross_kv)
+        x = self.attn_layers.step(x, cache, t, cross_kv, enc_mask=enc_mask, t0=t0)
         x = self.norm(x.float()).to(self.dtype)
         return self.to_logits(x)[:, 0, :]

@@ -7,6 +7,10 @@ goldens load with ``strict=True``.
 ``forward(images, targets)`` is the teacher-forced pass of training: the
 target mask is (targets != PAD), and the decoder reads targets[:, :-1] under
 that mask trimmed to match and returns the logits of targets[:, 1:].
+
+The ``decoder_*`` methods are the cached decode's: the self-attention cache
+and the cross-attention K/V follow ``config.self_kv_quant`` and
+``config.kv_quant``.
 """
 
 from __future__ import annotations
@@ -69,10 +73,12 @@ class OCRModel(nn.Module):
         return logits, targets[:, 1:]
 
     def decoder_init_cache(self, batch: int, max_len: int, device):
-        return self.dec.attn_layers.init_cache(batch, max_len, device)
+        return self.dec.attn_layers.init_cache(batch, max_len, device,
+                                               quant=self.config.self_kv_quant)
 
     def decoder_cross_kv(self, enc: torch.Tensor):
-        return self.dec.attn_layers.precompute_cross_kv(enc)
+        return self.dec.attn_layers.precompute_cross_kv(enc, quant=self.config.kv_quant)
 
-    def decoder_step(self, token_t: torch.Tensor, t: int, cache, cross_kv) -> torch.Tensor:
-        return self.dec.step(token_t, t, cache, cross_kv)
+    def decoder_step(self, token_t: torch.Tensor, t: int, cache, cross_kv,
+                     enc_mask: Optional[torch.Tensor] = None, t0: int = 0) -> torch.Tensor:
+        return self.dec.step(token_t, t, cache, cross_kv, enc_mask=enc_mask, t0=t0)

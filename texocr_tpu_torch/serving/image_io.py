@@ -1,0 +1,155 @@
+"""Image bytes -> a 2-D uint8 grey array, without PIL for PNG.
+
+The serving path takes rendered-equation PNGs. ``decode_image`` reads 8-bit,
+non-interlaced PNGs of colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey
+and alpha) and 6 (RGBA) with the standard library (``zlib``, ``struct``) and
+numpy, undoing the five row filters, and turns colour into grey as PIL's
+``convert("L")`` does: integer luma ``(R * 19595 + G * 38470 + B * 7471 +
+0x8000) >> 16``, a palette through its RGB entries, alpha dropped. Any other
+image goes to PIL, imported only then; without PIL it raises ``ValueError``
+naming the format.
+"""
+
+from __future__ import annotations
+
+import io
+import struct
+import zlib
+
+import numpy as np
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # per colour type, at 8 bits
+_MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
+          (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"RIFF", "WebP"))
+
+
+class UnsupportedPNG(ValueError):
+    """A PNG this reader does not decode (bit depth, interlace)."""
+
+
+def _luma(rgb: np.ndarray) -> np.ndarray:
+    r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
+def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters (None, Sub, Up, Average, Paeth) of the
+    decompressed scanlines -> (height, stride) uint8."""
+    data = np.frombuffer(raw, np.uint8)
+    if data.size < height * (stride + 1):
+        raise ValueError("truncated PNG image data")
+    rows = data[: height * (stride + 1)].reshape(height, stride + 1)
+    out = np.zeros((height, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(height):
+        kind, line = int(rows[y, 0]), rows[y, 1:]
+        if kind == 0:
+            cur = line.copy()
+        elif kind == 1:  # Sub: a running sum per byte of a pixel, mod 256
+            cur = np.empty(stride, np.uint8)
+            for i in range(bpp):
+                cur[i::bpp] = np.cumsum(line[i::bpp], dtype=np.uint64).astype(np.uint8)
+        elif kind == 2:  # Up
+            cur = line + prior
+        elif kind in (3, 4):  # Average, Paeth: sequential along the row
+            cur = _unfilter_sequential(kind, line.tolist(), prior.tolist(), bpp)
+        else:
+            raise ValueError(f"bad PNG filter type {kind}")
+        out[y] = cur
+        prior = out[y]
+    return out
+
+
+def _unfilter_sequential(kind: int, f: list, up: list, bpp: int) -> np.ndarray:
+    """One Average (3) or Paeth (4) row: each byte adds its predictor from the
+    byte a pixel to its left (a), the byte above (b) and above-left (c). The
+    first pixel has a = c = 0, where both predictors reduce to b (halved for
+    Average)."""
+    cur = bytearray(len(f))
+    for x in range(bpp):
+        cur[x] = (f[x] + (up[x] >> (kind == 3))) & 0xFF
+    if kind == 3:
+        for x in range(bpp, len(f)):
+            cur[x] = (f[x] + ((cur[x - bpp] + up[x]) >> 1)) & 0xFF
+    else:  # Paeth, with p = a + b - c: |p - a| = |b - c|, |p - b| = |a - c|
+        for x in range(bpp, len(f)):
+            a, b, c = cur[x - bpp], up[x], up[x - bpp]
+            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - c - c)
+            cur[x] = (f[x] + (a if pa <= pb and pa <= pc else b if pb <= pc else c)) & 0xFF
+    return np.frombuffer(bytes(cur), np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """An 8-bit, non-interlaced PNG -> (H, W) uint8 grey. Raises
+    ``UnsupportedPNG`` for other bit depths and interlaced images, and
+    ``ValueError`` for a malformed file."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError("not a PNG file")
+    pos, header, palette, idat = len(PNG_SIGNATURE), None, None, []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos: pos + 8])
+        body = data[pos + 8: pos + 8 + length]
+        if len(body) != length:
+            raise ValueError("truncated PNG chunk")
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG without an IHDR chunk")
+    width, height, depth, colour, _, _, interlace = header
+    if depth != 8 or interlace != 0 or colour not in _CHANNELS:
+        raise UnsupportedPNG(f"PNG of bit depth {depth}, colour type {colour}, "
+                             f"interlace {interlace}")
+    channels = _CHANNELS[colour]
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"corrupt PNG image data: {e}") from None
+    pixels = _unfilter(raw, height, width * channels, channels).reshape(height, width, channels)
+    if colour == 0:
+        return pixels[..., 0]
+    if colour == 4:
+        return np.ascontiguousarray(pixels[..., 0])
+    if colour == 3:
+        if palette is None:
+            raise ValueError("palette PNG without a PLTE chunk")
+        index = pixels[..., 0]
+        if int(index.max(initial=0)) >= len(palette):
+            raise ValueError("PNG palette index out of range")
+        return _luma(palette)[index]
+    return _luma(pixels)
+
+
+def image_format(data: bytes) -> str:
+    """The format its magic bytes name, or "unknown"."""
+    if data.startswith(PNG_SIGNATURE):
+        return "PNG"
+    for magic, name in _MAGIC:
+        if data.startswith(magic):
+            return name
+    return "unknown"
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """Image file bytes -> (H, W) uint8 grey. PNGs this module reads are
+    decoded here; anything else through PIL if it is installed."""
+    fmt = image_format(data)
+    if fmt == "PNG":
+        try:
+            return decode_png(data)
+        except UnsupportedPNG:
+            pass
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(f"cannot decode a {fmt} image without PIL "
+                         "(8-bit non-interlaced PNG needs none)") from None
+    with Image.open(io.BytesIO(data)) as img:
+        return np.asarray(img.convert("L"), dtype=np.uint8)

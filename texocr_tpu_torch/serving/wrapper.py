@@ -1,4 +1,4 @@
-"""Inference wrapper: image -> (token ids, LaTeX string), greedy.
+"""Inference wrapper: image -> (token ids, LaTeX string).
 
 ``TexOCR(config)`` loads the tokenizer named by ``config['tokenizer_path']``
 and a reference-keyed state dict (``config['model_path']`` as ``.pth``/``.npz``,
@@ -6,8 +6,11 @@ or ``state_dict=``), adopting the checkpoint's decoder positional-table length;
 without one the weights come from a generator seeded with ``config['seed']``.
 Each image goes onto a white uint8 bucket canvas (height a multiple of 16,
 width of 64, at most the configured ``img_size``), crosses to the device as
-uint8 and becomes ``1 - u8 / 255`` there. Then encode, greedy decode, and
-BPE decode plus ``process_output`` up to EOS or PAD.
+uint8 and becomes ``1 - u8 / 255`` there. Then encode, decode (``greedy``,
+``sample``: the reference's top-k/temperature sampling, or ``beam``), and BPE
+decode plus ``process_output`` up to EOS or PAD. Sampling draws from a
+``torch.Generator`` on the device, seeded with ``config['seed']``, which
+advances with every sampled call.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch.nn.functional as F
 
 from texocr_tpu_torch.checkpoint.convert import POS_EMBED_KEY, load_state
 from texocr_tpu_torch.config import ModelConfig, with_defaults
-from texocr_tpu_torch.models import OCRModel, greedy_decode
+from texocr_tpu_torch.models import OCRModel, generate
 from texocr_tpu_torch.tokenizer import RegexBPETokenizer
 from texocr_tpu_torch.utils import pad_to_multiple, process_output
 
@@ -44,6 +47,7 @@ class TexOCR:
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         self.model.eval()
+        self.generator = torch.Generator(device=self.device).manual_seed(config.get("seed", 42))
 
     # -- preprocessing ---------------------------------------------------------
 
@@ -90,28 +94,21 @@ class TexOCR:
 
     # -- inference ---------------------------------------------------------------
 
-    def __call__(self, img, max_len: int = 350, mode: str = "greedy") -> Tuple[list, str]:
-        """(token ids up to and excluding EOS, LaTeX string)."""
-        tokens = self.generate_batch(self.preprocess(img), max_len=max_len, mode=mode)
+    def __call__(self, img, max_len: int = 350, temp: float = 0.3, mode: str = "greedy",
+                 beam_size: int = 5) -> Tuple[list, str]:
+        """(token ids up to and excluding EOS, LaTeX string). ``mode``:
+        "greedy", "sample" (at ``temp``) or "beam" (``beam_size`` wide)."""
+        tokens = self.generate_batch(self.preprocess(img), max_len=max_len, temp=temp,
+                                     mode=mode, beam_size=beam_size)
         return self.postprocess(tokens[0].cpu().numpy())
 
-    @torch.inference_mode()
-    def generate_batch(self, images, max_len: int = 350, mode: str = "greedy") -> torch.Tensor:
+    def generate_batch(self, images, max_len: int = 350, temp: float = 0.3,
+                       mode: str = "greedy", beam_size: int = 5) -> torch.Tensor:
         """(B, H, W, 1) uint8 canvases (numpy or tensor) -> (B, max_len) int64
         token ids on the model's device, PAD after EOS."""
-        if mode in ("sample", "beam"):
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet (ROADMAP: sampled decode, then beam)"
-            )
-        if mode != "greedy":
-            raise ValueError(f"unknown decode mode: {mode!r}")
         u8 = torch.as_tensor(images).to(self.device)
-        x = 1.0 - u8.float() / 255.0
-        cfg = self.model.config
-        enc = self.model.encode(x)
-        return greedy_decode(self.model, enc, bos_token=cfg.bos_token,
-                             eos_token=cfg.eos_token, pad_token=cfg.pad_token,
-                             max_len=max_len)
+        return generate(self.model, 1.0 - u8.float() / 255.0, max_len=max_len, mode=mode,
+                        generator=self.generator, temp=temp, beam_size=beam_size)
 
     def postprocess(self, row: np.ndarray) -> Tuple[list, str]:
         cfg = self.model.config
