@@ -43,6 +43,21 @@ Phases, each fatal on failure:
      loader's time per batch alone, peak memory, a profiled step (device time
      over that call's own wall time) and the kernel at the training shape
      beside its bound, the library call and the math-path backward.
+ 8b. device data: train_model with device_data and device_data_augment on
+     (the dataset resident on the card as uint8, batches picked and augmented
+     there, 16 steps a call), the flagship as in phase 8 on 8 full-canvas
+     batches and 2 of (64, 512) (10 steps an epoch), 2 epochs, val resident.
+     Fatal: finite epoch losses, the second below the first, 4 flash launches
+     per train and eval step, a resume from its checkpoint with the same step
+     count and weights. Prints both epochs' wall time beside the host
+     loader's on the same data in the same run (augmentation on the host),
+     the synchronised full-canvas step, images/s, a profiled call's device-busy
+     share and peak memory. Then one (160, 1008) bucket of RESIDENT_ROWS rows
+     (RESIDENT_DISTINCT distinct canvases with gray stroke edges, repeated)
+     staged at pack_bits 8 and then 4, each beside one call of 16 steps:
+     staging time, resident GB, peak memory and step time; fatal: finite
+     losses, the 4-bit gather within 15.5/255 of the 8-bit one and exact at
+     0 and 1.
   9. int8: a batch of 8 full canvases with kv_quant and self_kv_quant int8,
      DECODE_STEPS steps without EOS, through TexOCR.generate_batch. Fatal:
      the int8 caches' step logits within 5% of the largest |logit| of the
@@ -125,6 +140,11 @@ TRAIN_BUCKETS = (((160, 1008), 2), ((64, 512), 1))  # (canvas, batches) of the t
 TRAIN_EPOCHS = 2
 TIMED_EPOCHS = 4  # further epochs, each step synchronised, for the step time
 TRAIN_SHAPE = (TRAIN_BATCH, 8, 631, 64)  # the encoder's self-attention, full canvases
+DD_BUCKETS = (((160, 1008), 8), ((64, 512), 2))  # phase 8b's train split: 10 steps an epoch
+DD_STEPS_PER_CALL = 16  # device_data_steps_per_call, and the steps beside the resident bucket
+RESIDENT_ROWS = 50_000  # phase 8b's staged (160, 1008) bucket
+RESIDENT_DISTINCT = 256  # distinct canvases among its rows
+PACK4_TOL = 15.5 / 255  # 4-bit gather against the 8-bit one (tests/test_device_data.py)
 GRAD_IMAGES = 8  # full canvases of the kernel-path against plain-path gradient check
 GRAD_TOL = 1e-4  # relative L2 error of every encoder parameter's float32 gradient
 BF16_FLOOR = 2e-2  # least bfloat16 tolerance: kernel outputs and gradients
@@ -680,11 +700,11 @@ def write_split(root, split, buckets, rng) -> str:
     return path
 
 
-def write_train_data(root, rng) -> None:
+def write_train_data(root, rng, train_buckets=TRAIN_BUCKETS) -> None:
     """train/val/test pickles under ``root``: the train split holds
-    TRAIN_BUCKETS, val one full batch of full canvases, test eight small
-    canvases (unused)."""
-    splits = {"train": [(hw, n * TRAIN_BATCH) for hw, n in TRAIN_BUCKETS],
+    ``train_buckets`` ((canvas, batches) pairs), val one full batch of full
+    canvases, test eight small canvases (unused)."""
+    splits = {"train": [(hw, n * TRAIN_BATCH) for hw, n in train_buckets],
               "val": [((160, 1008), TRAIN_BATCH)], "test": [((64, 512), 8)]}
     for split, buckets in splits.items():
         write_split(root, split, buckets, rng)
@@ -928,6 +948,183 @@ def train(fa, rng) -> dict:
         f"ms wall, {100 * result['profile']['device_busy_share']:.1f}% busy, attention's "
         f"math-path backward {100 * result['profile']['math_backward_share']:.1f}%")
     log("[train] " + json.dumps(result))
+    return result
+
+
+def gray_edges(img) -> np.ndarray:
+    """``img`` with antialiased stroke edges: gray 128 right of a stroke and
+    192 below it, as a renderer leaves them (so that a 4-bit bucket loses
+    something)."""
+    right = np.roll(img, 1, axis=1) // 2 + 128
+    below = np.roll(img, 1, axis=0) // 4 + 192
+    return np.minimum(np.minimum(img, right), below)
+
+
+def mem_available_gb() -> float:
+    """The host's MemAvailable, in GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise AssertionError("no MemAvailable in /proc/meminfo")
+
+
+def device_data_phase(fa, rng) -> dict:
+    """Phase 8b: device-resident training (see the module docstring)."""
+    from texocr_tpu_torch.checkpoint.io import latest_checkpoint
+    from texocr_tpu_torch.data.dataset import ImageDataset, load_datasets
+    from texocr_tpu_torch.training.device_data import (
+        DeviceResidentData,
+        epoch_permutation,
+        gather_batch,
+        make_chunk_train_step,
+    )
+    from texocr_tpu_torch.training.loop import train_model
+
+    (h, w), full_batches = DD_BUCKETS[0]
+    tag = h * 4096 + w  # the loop's bucket tag
+    torch.cuda.empty_cache()
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_data(tmp, rng, DD_BUCKETS)
+        train_set, val_set, _ = load_datasets(tmp)
+        config = dict(train_config(os.path.join(tmp, "resident")), device_data=True,
+                      device_data_augment=True, device_data_steps_per_call=DD_STEPS_PER_CALL)
+        metrics = os.path.join(tmp, "resident.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        _, state, history = train_model(train_set, val_set, config, metrics_path=metrics,
+                                        device="cuda")
+        run_s = time.perf_counter() - t0
+        launches = fa.flash_attention.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(metrics) as f:
+            records = [json.loads(line) for line in f]
+        epochs = [r for r in records if r["event"] == "train_epoch"]
+        train_steps = sum(r["steps"] for r in epochs)
+        eval_steps = sum(1 for r in records if r["event"] == "val")  # one val batch each
+        log(f"[device data] train_model, device_data on, augmentation on the device: "
+            f"{TRAIN_EPOCHS} epochs, {train_steps} train and {eval_steps // TRAIN_EPOCHS} eval "
+            f"steps in {run_s:.1f} s; epoch s {[r['seconds'] for r in epochs]}; epoch losses "
+            f"{history}; flash launches {launches}; peak memory {peak_gb:.2f} GB")
+        if not (len(history) == TRAIN_EPOCHS and np.isfinite(history).all()):
+            raise AssertionError(f"non-finite device-resident training loss: {history}")
+        if not history[1] < history[0]:
+            raise AssertionError(f"the device-resident loss did not fall: {history}")
+        if train_steps != TRAIN_EPOCHS * sum(n for _, n in DD_BUCKETS):
+            raise AssertionError(f"expected {sum(n for _, n in DD_BUCKETS)} steps an epoch")
+        if launches != N_LAYERS * (train_steps + eval_steps):
+            raise AssertionError(f"expected {N_LAYERS} flash launches per step, got {launches} for "
+                                 f"{train_steps} train and {eval_steps} eval steps")
+
+        # A checkpoint of this path resumes with its step count and weights.
+        _, resumed, _ = train_model(train_set, val_set, dict(config, resume=True),
+                                    verbose=False, device="cuda")
+        trained = state.model.state_dict()
+        same = all(torch.equal(v, trained[k]) for k, v in resumed.model.state_dict().items())
+        log(f"[device data] resume from {latest_checkpoint(config['save_dir'])}: step "
+            f"{resumed.step} (trained {state.step}), weights "
+            f"{'equal to the trained ones' if same else 'DIFFER'}")
+        if not (resumed.step == state.step and same):
+            raise AssertionError("a device-resident checkpoint does not resume")
+        del resumed, trained
+
+        # The host loader on the same data, host augmentation on as the CLI sets it.
+        train_set.augment = True
+        host_metrics = os.path.join(tmp, "host.jsonl")
+        train_model(train_set, val_set, dict(config, device_data=False,
+                                             save_dir=os.path.join(tmp, "host")),
+                    metrics_path=host_metrics, verbose=False, device="cuda")
+        with open(host_metrics) as f:
+            host_epochs = [json.loads(line) for line in f]
+        host_epochs = [r for r in host_epochs if r["event"] == "train_epoch"]
+        train_set.augment = False
+        torch.cuda.empty_cache()
+
+        # Synchronised steps and a profiled call on the full-canvas bucket.
+        data = DeviceResidentData.from_dataset(train_set, seq_pad_multiple=32, device="cuda")
+        full = data.buckets[(h, w)]
+        run = make_chunk_train_step(TRAIN_BATCH, augment=True)
+        perm = epoch_permutation(full.n, 42, 0, tag, "cuda")
+        step_s = []
+        for s in range(full_batches):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = run(state, full, perm, 1, s)["loss"].item()
+            step_s.append(time.perf_counter() - t)
+            if not np.isfinite(loss):
+                raise AssertionError(f"non-finite loss {loss}")
+        prof = device_kernels(lambda: run(state, full, perm, 4, 0))
+        del data, full
+        median = float(np.median(step_s))
+        result.update(
+            train_model_s=run_s, epoch_losses=history, epochs=epochs, host_epochs=host_epochs,
+            launches=launches, launches_per_step=launches / (train_steps + eval_steps),
+            peak_memory_gb=peak_gb, step_s={"median": median, "min": min(step_s),
+                                            "max": max(step_s), "steps": len(step_s)},
+            images_per_s_full=TRAIN_BATCH / median,
+            profile={**prof, "device_busy_share": prof["device_s"] / prof["profiled_wall_s"]})
+        log(f"[device data] epoch wall s: device-resident {[r['seconds'] for r in epochs]}, "
+            f"host loader {[r['seconds'] for r in host_epochs]} (same data, same run); "
+            f"full-canvas step (synchronised) median {median:.4f} s of {len(step_s)}, "
+            f"{TRAIN_BATCH / median:.1f} images/s; profiled 4-step call "
+            f"{prof['device_s'] * 1e3:.1f} ms on the device in {prof['profiled_wall_s'] * 1e3:.1f} "
+            f"ms wall, {100 * result['profile']['device_busy_share']:.1f}% busy")
+
+        # A resident size users run: one full-canvas bucket of RESIDENT_ROWS rows.
+        log(f"[device data] host MemAvailable {mem_available_gb():.2f} GB")
+        ids = train_set.sizes[(w, h)][:RESIDENT_DISTINCT]
+        distinct = [gray_edges(train_set.images[i]) for i in ids]
+        big = ImageDataset.from_arrays(
+            [distinct[i % len(ids)] for i in range(RESIDENT_ROWS)],
+            [train_set.token_ids[ids[i % len(ids)]] for i in range(RESIDENT_ROWS)])
+        run = make_chunk_train_step(TRAIN_BATCH, augment=True)
+        idx = torch.arange(0, RESIDENT_ROWS, RESIDENT_ROWS // TRAIN_BATCH,
+                           device="cuda")[:TRAIN_BATCH]
+        gathered = {}
+        result["resident"] = {}
+        for pack_bits in (8, 4):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            staged = DeviceResidentData.from_dataset(big, seq_pad_multiple=32, device="cuda",
+                                                     pack_bits=pack_bits)
+            torch.cuda.synchronize()
+            stage_s = time.perf_counter() - t
+            bucket = staged.buckets[(h, w)]
+            gathered[pack_bits] = gather_batch(bucket, idx)[0]
+            perm = epoch_permutation(bucket.n, 42, 0, tag, "cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = run(state, bucket, perm, DD_STEPS_PER_CALL, 0)["loss"].item()
+            call_s = time.perf_counter() - t
+            row = {"rows": bucket.n, "resident_gb": bucket.images.nbytes / 1e9,
+                   "labels_gb": bucket.labels.nbytes / 1e9, "staging_s": stage_s,
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "step_s": call_s / DD_STEPS_PER_CALL, "loss": loss}
+            result["resident"][pack_bits] = row
+            log(f"[device data] {bucket.n} resident {(h, w)} rows at pack_bits {pack_bits}: "
+                f"staged in {stage_s:.1f} s, {row['resident_gb']:.3f} GB of images; one call of "
+                f"{DD_STEPS_PER_CALL} steps beside it {call_s:.2f} s "
+                f"({row['step_s']:.4f} s a step), loss {loss:.4f}; peak memory "
+                f"{row['peak_memory_gb']:.2f} GB")
+            if not np.isfinite(loss):
+                raise AssertionError(f"non-finite loss beside the resident bucket: {loss}")
+            del staged, bucket, perm
+        err = (gathered[4] - gathered[8]).abs()
+        exact = (gathered[8] == 0) | (gathered[8] == 1)
+        err_max, exact_max = err.max().item(), err[exact].max().item()
+        ok = err_max <= PACK4_TOL and exact_max == 0
+        log(f"[device data] pack-4 gather against pack-8 on the card: max err {err_max:.4f} "
+            f"(tol {PACK4_TOL:.4f}), at 0 and 1 {exact_max:g} (must be 0) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the 4-bit gather departs from the 8-bit one")
+        result["pack4_gather_max_err"] = err_max
+        del gathered, big, state
+    torch.cuda.empty_cache()
+    log("[device data] " + json.dumps(result))
     return result
 
 
@@ -1321,6 +1518,7 @@ def main() -> int:
     phase("encoder", check_encoder_paths, rng)
     trained = phase("train", train, fa, rng)
     train_row = phase("train timing", time_train_attention, fa, gen)
+    resident = phase("device data", device_data_phase, fa, rng)
     paths = {"int8": phase("int8", int8_phase, fa, served["batch"], profiled["decode"]),
              "sample": phase("sample", sample_phase, fa, served["batch"]),
              "beam": phase("beam", beam_phase, fa, served["batch"]),
@@ -1355,6 +1553,8 @@ def main() -> int:
         ))
     kernels[0].update(train_launches_per_step=trained["launches_per_step"],
                       train_launches=trained["launches"], train_shape=train_row,
+                      device_data_launches=resident["launches"],
+                      device_data_launches_per_step=resident["launches_per_step"],
                       launches_per_path={name: {"launches": r["launches"], "encodes": r["encodes"]}
                                          for name, r in paths.items()})
     log(json.dumps({"kernels": kernels}))
@@ -1366,6 +1566,10 @@ def main() -> int:
         + f" s wall; http p50 {paths['http']['p50_s']} s, p99 {paths['http']['p99_s']} s")
     log(f"[train] step s {trained['step_s']}, {trained['images_per_s_full']} images/s at "
         f"(160, 1008), peak memory {trained['peak_memory_gb']} GB on {card}")
+    log(f"[device data] epoch s {[r['seconds'] for r in resident['epochs']]} against the host "
+        f"loader's {[r['seconds'] for r in resident['host_epochs']]}, step "
+        f"{resident['step_s']['median']} s, peak memory {resident['peak_memory_gb']} GB; "
+        f"50k resident rows: " + json.dumps(resident["resident"]) + f" on {card}")
     log(card_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -404,7 +404,15 @@ def test_cli_trains_two_epochs(tmp_path):
     assert all(np.isfinite(r["loss"]) for r in records)
     assert records[0]["steps"] == 4 and records[0]["images_per_sec"] > 0
     assert latest_checkpoint(str(tmp_path / "ckpt")).endswith("checkpoint_e1")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        from texocr_tpu_torch.training.loop import train_model
 
-        train_model(ds, None, dict(config, device_data=True), device="cpu")
+    # The device-resident path from the same CLI: the dataset on the device.
+    config_path.write_text(json.dumps(dict(config, device_data=True, device_data_augment=True,
+                                           save_dir=str(tmp_path / "resident"))))
+    metrics = tmp_path / "resident.jsonl"
+    cli.main(cli.parse_args(["-d", str(tmp_path), "--config", str(config_path),
+                             "--metrics", str(metrics), "--device", "cpu"]))
+    records = [json.loads(line) for line in metrics.read_text().splitlines()]
+    assert [r["event"] for r in records] == ["train_epoch", "val", "train_epoch", "val"]
+    assert all(np.isfinite(r["loss"]) for r in records)
+    assert records[0]["steps"] == 4 and records[0]["images_per_sec"] > 0
+    assert latest_checkpoint(str(tmp_path / "resident")).endswith("checkpoint_e1")

@@ -9,8 +9,14 @@ Training keys, with the JAX package's defaults: ``mask_pad_loss`` (mask PAD
 labels out of the loss; false is the reference's unmasked cross entropy),
 ``seq_pad_multiple`` (label batches padded up to a multiple of it), ``remat``
 (recompute each transformer sub-layer and ResNet bottleneck in the backward
-instead of storing its activations) and ``device_data`` (the device-resident
-loader, not ported yet: true raises).
+instead of storing its activations) and ``device_data`` (the dataset resident
+on the device as uint8 shape buckets, batches picked and augmented there;
+``training/device_data.py``). The ``device_data_*`` keys tune that path:
+``steps_per_call`` (steps a call runs from one bucket), ``val`` (false
+streams the val split from the host loader), ``augment`` (the on-device
+augmentation; the host's ``ImageDataset.augment`` has no effect there),
+``size_round``, ``bucket_cap``, ``pack_bits`` (8 or 4) and ``max_canvas``
+((h, w): larger buckets are left out).
 
 Decode keys: ``kv_quant`` (``int8`` quantizes the cross-attention K/V once per
 sequence, per (B, H, dh) scales) and ``self_kv_quant`` (``int8`` keeps the
@@ -36,6 +42,13 @@ _DEFAULTS: Dict[str, Any] = {
     "seq_pad_multiple": 32,
     "remat": False,
     "device_data": False,
+    "device_data_steps_per_call": 16,
+    "device_data_val": True,
+    "device_data_augment": False,
+    "device_data_size_round": 512,
+    "device_data_bucket_cap": None,
+    "device_data_pack_bits": 8,
+    "device_data_max_canvas": None,
     "optimizer": "Adam",
     "optimizer_args": {"lr": 5e-4},
     "seed": 42,
@@ -207,13 +220,10 @@ class TrainConfig:
     @staticmethod
     def from_dict(config: dict) -> "TrainConfig":
         """The loop's keys; the loader's (``drop_last``, ``keep_small``,
-        ``batch_shuffle``, ``id_shuffle``) are read by ``create_dataloader``."""
+        ``batch_shuffle``, ``id_shuffle``) are read by ``create_dataloader``,
+        and the device-resident path's (``device_data*``, ``keep_small``,
+        ``batch_shuffle``) by the loop from the config dict."""
         config = with_defaults(config)
-        if config["device_data"]:
-            raise NotImplementedError(
-                "device_data: true (the device-resident loader) is not ported yet "
-                "(ROADMAP Queue 1 item 12); the host loader runs with device_data: false"
-            )
         return TrainConfig(
             batch_size=config["batch_size"],
             n_epochs=config["n_epochs"],

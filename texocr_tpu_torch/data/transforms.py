@@ -10,6 +10,8 @@
   generator as the JAX package draws it.
 - ``to_model_array``: a uint8 image (or a PIL image) -> float32 (H, W, 1) in
   [0, 1], grayscale and inverted (ink 1, background 0).
+- ``preprocess``: the same on a batch of raw uint8 images on their own
+  device, centre-padded to the render rule's canvas multiples.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from texocr_tpu_torch.utils import pad_to_multiple
 
 # ITU-R 601 luma weights, what torchvision's Grayscale uses.
 _LUMA = np.array([0.2989, 0.587, 0.114], dtype=np.float32)
@@ -67,3 +71,21 @@ def img_transform(arr: np.ndarray, rng: Optional[np.random.Generator] = None,
     if augment:
         arr = affine_scale_aug(arr, rng if rng is not None else np.random.default_rng())
     return to_model_array(arr)
+
+
+def preprocess(raw: torch.Tensor, patch_size: int = 16, width_multiple: int = 64) -> torch.Tensor:
+    """uint8 (B, H, W) or (B, H, W, C) -> float32 (B, H', W', 1) on the same
+    device: grayscale (luma weights for 3 or more channels, else the first),
+    inverted, and centre-padded with background (0) to H' a multiple of
+    ``patch_size`` and W' of ``width_multiple``."""
+    x = raw.float() / 255.0
+    if x.dim() == 4 and x.shape[-1] >= 3:
+        x = x[..., :3] @ torch.from_numpy(_LUMA).to(x.device)
+    elif x.dim() == 4:
+        x = x[..., 0]
+    x = 1.0 - x
+    _, h, w = x.shape
+    pad_h = pad_to_multiple(h, patch_size) - h
+    pad_w = pad_to_multiple(w, width_multiple) - w
+    x = F.pad(x, (pad_w // 2, pad_w - pad_w // 2, pad_h // 2, pad_h - pad_h // 2))
+    return x[..., None]

@@ -3,8 +3,9 @@
     python -m texocr_tpu_torch.training.cli -d data --config config/config.yml
 
 ``-d`` holds ``{train/trainset, val/valset, test/testset}.pkl`` as either
-package's ``ImageDataset.save`` writes them. Augmentation is on for the train
-split.
+package's ``ImageDataset.save`` writes them. The host loader augments the
+train split; with ``device_data: true`` in the config, ``device_data_augment``
+decides instead.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def main(args: argparse.Namespace) -> None:
         config["resume"] = True
     print("Loading datasets...")
     train_set, val_set, _ = load_datasets(args.data_dir)
-    train_set.augment = True  # augmentation on the train split only
+    train_set.augment = True  # the host loader's augmentation, train split only
     print("Datasets loaded!")
     train_model(train_set, val_set, config, metrics_path=args.metrics, device=args.device)
 

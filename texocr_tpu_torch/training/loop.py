@@ -1,14 +1,19 @@
 """The training loop: epochs over the shape-bucketed host loader, the train
 step on the device, and the checkpoint and validation cadence of the config.
 
+With ``device_data: true`` the dataset is resident on the device instead
+(``training/device_data.py``): each epoch is a plan of calls, each running up
+to ``device_data_steps_per_call`` steps from one bucket, interleaved across
+buckets in an order shuffled per epoch.
+
 The device is synchronised once per epoch: metrics add up as device scalars
 and are read after the epoch's last step, so the host queues steps ahead of
-the device. The device-resident loader (``device_data: true``) is not ported
-yet and raises (ROADMAP Queue 1 item 12).
+the device.
 """
 
 from __future__ import annotations
 
+import random
 import time
 from typing import Optional
 
@@ -24,9 +29,16 @@ from texocr_tpu_torch.config import ModelConfig, TrainConfig, with_defaults
 from texocr_tpu_torch.data.dataset import ImageDataset, create_dataloader, prefetch
 from texocr_tpu_torch.models import OCRModel
 from texocr_tpu_torch.telemetry import MetricsLogger
+from texocr_tpu_torch.training.device_data import (
+    DeviceResidentData,
+    epoch_permutation,
+    make_chunk_eval_step,
+    make_chunk_train_step,
+)
 from texocr_tpu_torch.training.losses import get_loss_fn
 from texocr_tpu_torch.training.optimizers import get_optimizer
 from texocr_tpu_torch.training.train_step import (
+    TrainState,
     create_train_state,
     make_eval_step,
     make_train_step,
@@ -81,6 +93,46 @@ def train_model(train_set: ImageDataset, val_set: Optional[ImageDataset], config
         print(f"Device: {device}; model has {n_params} parameters.")
 
     logger = MetricsLogger(metrics_path, echo=verbose)
+    train = _train_device_resident if config["device_data"] else _train_host
+    start = time.time()
+    try:
+        history = train(state, train_set, val_set, tcfg, config, device, start_epoch, logger,
+                        verbose)
+    finally:
+        logger.close()
+    if verbose:
+        print(f"Training took {time.time() - start:.2f} seconds.")
+    return model, state, history
+
+
+def _end_epoch(state: TrainState, tcfg: TrainConfig, logger: MetricsLogger, epoch: int,
+               loss_sum: torch.Tensor, acc_sum: torch.Tensor, n_steps: int, n_images: int,
+               t0: float) -> float:
+    """Logs the epoch (its one sync), saves its checkpoint when due and
+    returns its mean loss."""
+    mean_loss = float(loss_sum) / max(n_steps, 1)
+    dt = time.time() - t0
+    logger.log("train_epoch", epoch=epoch + 1, loss=mean_loss,
+               token_acc=float(acc_sum) / max(n_steps, 1), steps=n_steps,
+               images_per_sec=n_images / max(dt, 1e-9), seconds=dt)
+    if tcfg.save_checkpoint and (epoch + 1) % tcfg.save_freq == 0:
+        save_checkpoint(tcfg.save_dir, epoch, state.model.state_dict(),
+                        state.optimizer.state_dict(), extra={"step": state.step})
+    return mean_loss
+
+
+def _host_val(model: OCRModel, val_loader, eval_step, device) -> Optional[float]:
+    """Mean loss over the val loader's batches, or None without a batch."""
+    val_loss = torch.zeros((), device=device)
+    n = 0
+    for images, labels in val_loader:
+        val_loss += eval_step(model, *put_batch(images, labels, device))
+        n += 1
+    return float(val_loss) / n if n else None
+
+
+def _train_host(state, train_set, val_set, tcfg, config, device, start_epoch, logger, verbose):
+    """Epochs over the shape-bucketed host loader."""
     train_step = make_train_step(mask_pad=tcfg.mask_pad_loss)
     eval_step = make_eval_step(mask_pad=tcfg.mask_pad_loss)
     # One loader for the run: its seeds grow per epoch, so batches differ
@@ -88,41 +140,90 @@ def train_model(train_set: ImageDataset, val_set: Optional[ImageDataset], config
     train_loader = create_dataloader(train_set, config, seed_offset=start_epoch)
     val_loader = create_dataloader(val_set, config) if val_set is not None else None
     history = []
-    start = time.time()
-    try:
-        for epoch in range(start_epoch, tcfg.n_epochs):
-            epoch_loss = torch.zeros((), device=device)
-            epoch_acc = torch.zeros((), device=device)
-            n_batches, n_images = 0, 0
-            t0 = time.time()
-            for images, labels in prefetch(iter(train_loader)):
-                images, labels = put_batch(images, labels, device)
-                metrics = train_step(state, images, labels)
-                epoch_loss += metrics["loss"]
-                epoch_acc += metrics["token_acc"]
-                n_batches += 1
-                n_images += images.shape[0]
-            mean_loss = float(epoch_loss) / max(n_batches, 1)  # the epoch's one sync
-            dt = time.time() - t0
-            history.append(mean_loss)
-            logger.log("train_epoch", epoch=epoch + 1, loss=mean_loss,
-                       token_acc=float(epoch_acc) / max(n_batches, 1), steps=n_batches,
-                       images_per_sec=n_images / max(dt, 1e-9), seconds=dt)
+    for epoch in range(start_epoch, tcfg.n_epochs):
+        loss_sum = torch.zeros((), device=device)
+        acc_sum = torch.zeros((), device=device)
+        n_batches, n_images = 0, 0
+        t0 = time.time()
+        for images, labels in prefetch(iter(train_loader)):
+            images, labels = put_batch(images, labels, device)
+            metrics = train_step(state, images, labels)
+            loss_sum += metrics["loss"]
+            acc_sum += metrics["token_acc"]
+            n_batches += 1
+            n_images += images.shape[0]
+        history.append(_end_epoch(state, tcfg, logger, epoch, loss_sum, acc_sum, n_batches,
+                                  n_images, t0))
+        if val_loader is not None and (epoch + 1) % tcfg.val_freq == 0:
+            val_loss = _host_val(state.model, val_loader, eval_step, device)
+            if val_loss is not None:
+                logger.log("val", epoch=epoch + 1, loss=val_loss)
+    return history
 
-            if tcfg.save_checkpoint and (epoch + 1) % tcfg.save_freq == 0:
-                save_checkpoint(tcfg.save_dir, epoch, model.state_dict(),
-                                optimizer.state_dict(), extra={"step": state.step})
 
-            if val_loader is not None and (epoch + 1) % tcfg.val_freq == 0:
-                val_loss = torch.zeros((), device=device)
-                n = 0
-                for images, labels in val_loader:
-                    val_loss += eval_step(model, *put_batch(images, labels, device))
-                    n += 1
-                if n:
-                    logger.log("val", epoch=epoch + 1, loss=float(val_loss) / n)
-    finally:
-        logger.close()
+def _train_device_resident(state, train_set, val_set, tcfg, config, device, start_epoch,
+                           logger, verbose):
+    """Epochs over the shape buckets resident on the device. Like the JAX
+    package, this path reads ``batch_shuffle`` with a default of true and
+    ``keep_small`` with a default of false (the host loader defaults both to
+    false)."""
+    batch_size = tcfg.batch_size
+    steps_cap = config["device_data_steps_per_call"]
+    staging = dict(seq_pad_multiple=tcfg.seq_pad_multiple, device=device,
+                   max_canvas=config["device_data_max_canvas"],
+                   size_round=config["device_data_size_round"],
+                   pack_bits=config["device_data_pack_bits"])
+    data = DeviceResidentData.from_dataset(
+        train_set, min_bucket_items=1 if config.get("keep_small", False) else batch_size,
+        bucket_cap=config["device_data_bucket_cap"], **staging)
+    # device_data_val false streams the val split from the host loader, and
+    # leaves the device's memory to the train buckets.
+    val_data = val_loader = None
+    if val_set is not None and config["device_data_val"]:
+        val_data = DeviceResidentData.from_dataset(val_set, **staging)
+    elif val_set is not None:
+        val_loader = create_dataloader(val_set, config)
+        eval_step = make_eval_step(mask_pad=tcfg.mask_pad_loss)
     if verbose:
-        print(f"Training took {time.time() - start:.2f} seconds.")
-    return model, state, history
+        for key, b in data.buckets.items():
+            print(f"  bucket {key}: {b.n} images, seq_len {b.seq_len}, "
+                  f"{b.images.nbytes / 1e6:.0f} MB on device")
+
+    run_steps = make_chunk_train_step(batch_size, mask_pad=tcfg.mask_pad_loss,
+                                      augment=bool(config["device_data_augment"]))
+    eval_steps = make_chunk_eval_step(batch_size, mask_pad=tcfg.mask_pad_loss)
+    plan = data.plan(batch_size, steps_cap=steps_cap)
+    plan_rng = random.Random(tcfg.seed + start_epoch)
+    history = []
+    for epoch in range(start_epoch, tcfg.n_epochs):
+        # Buckets interleave call by call, in an order shuffled per epoch.
+        if config.get("batch_shuffle", True):
+            plan_rng.shuffle(plan)
+        perms = {key: epoch_permutation(b.n, tcfg.seed, epoch, key[0] * 4096 + key[1], device)
+                 for key, b in data.buckets.items()}
+        loss_sum = torch.zeros((), device=device)
+        acc_sum = torch.zeros((), device=device)
+        n_steps = 0
+        t0 = time.time()
+        for key, steps, chunk_start in plan:
+            metrics = run_steps(state, data.buckets[key], perms[key], steps, chunk_start)
+            loss_sum += metrics["loss"] * steps
+            acc_sum += metrics["token_acc"] * steps
+            n_steps += steps
+        history.append(_end_epoch(state, tcfg, logger, epoch, loss_sum, acc_sum, n_steps,
+                                  n_steps * batch_size, t0))
+        if (epoch + 1) % tcfg.val_freq:
+            continue
+        if val_data is not None:
+            val_loss = torch.zeros((), device=device)
+            n = 0
+            for key, steps, off in val_data.plan(batch_size, steps_cap):
+                val_loss += eval_steps(state.model, val_data.buckets[key], steps, off) * steps
+                n += steps
+            if n:
+                logger.log("val", epoch=epoch + 1, loss=float(val_loss) / n)
+        elif val_loader is not None:
+            val_loss = _host_val(state.model, val_loader, eval_step, device)
+            if val_loss is not None:
+                logger.log("val", epoch=epoch + 1, loss=val_loss)
+    return history

@@ -31,10 +31,16 @@ def create_train_state(model: OCRModel, optimizer: Optimizer, seed: int) -> Trai
     return TrainState(model=model, optimizer=optimizer, step=0, seed=seed)
 
 
+def seeded_generator(device, *words: int) -> torch.Generator:
+    """A generator on ``device`` seeded from ``words`` through
+    ``np.random.SeedSequence``: one independent stream per tuple of words."""
+    key = int(np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(key)
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The dropout generator of one step, on ``device``, seeded from (seed, step)."""
-    key = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
-    return torch.Generator(device=device).manual_seed(key)
+    return seeded_generator(device, seed, step)
 
 
 def _loss_and_acc(model: OCRModel, images, labels, mask_pad: bool, generator=None):
