@@ -20,11 +20,24 @@ Phases, each fatal on failure:
      the float32 kernel's launch count is read from this phase.
   5. serve: the flagship configuration at full width in bfloat16 with seeded
      random weights, answering single requests of three bucket sizes and
-     batches of 8 full canvases, each bucket warmed up first and each timed
-     REPEATS times (median); launch counts are read from this phase only.
-  6. profile: where the serving time goes, for a batch of 8 full canvases:
-     encode and a DECODE_STEPS-step greedy decode, wall time (host clock) and
-     device kernels (torch.profiler).
+     batches of 8 full canvases through TexOCR, whose CUDA engine decodes
+     through CUDA graphs: each key's first call (its capture) comes first, and
+     each is timed REPEATS times (median); launch counts are read from this
+     phase only.
+  6. profile: where the eager path's serving time goes, for a batch of 8 full
+     canvases: encode and a DECODE_STEPS-step greedy decode, wall time (host
+     clock) and device kernels (torch.profiler, CUDA activity).
+ 6b. graphs: models.graphed.make_graphed_generate on the serving batch (8 full
+     canvases, bf16, DECODE_STEPS tokens) in greedy, int8 (both caches), beam
+     5 and sampling at 0.3, each beside the eager path. Fatal: tokens
+     bit-equal to the eager path's (the generator reseeded alike), beam's best
+     scores too, two successive sampled calls that differ, 4 flash launches
+     per encode counted on replays, and the float32 golden model's greedy
+     tokens exact through the graphs. Prints per mode, eager and graph in this
+     call: decode wall (median of REPEATS), device time, kernels a step, busy
+     share; the capture's seconds and the memory the key holds; encode wall
+     and device time for both (phase 6's eager numbers for greedy and
+     encode).
   7. encoder: kernel path against the plain path at the full canvas, float32.
   8. train: texocr_tpu_torch.training.loop.train_model on the card, the
      flagship at full width in bfloat16 with config/config.yml's training keys
@@ -62,15 +75,15 @@ Phases, each fatal on failure:
      DECODE_STEPS steps without EOS, through TexOCR.generate_batch. Fatal:
      the int8 caches' step logits within 5% of the largest |logit| of the
      unquantized cache's, over each row's steps up to its first differing
-     token. Prints the share of tokens that agree, wall and device time and
-     kernels per step beside phase 6's unquantized decode.
+     token. Prints the share of tokens that agree (the decode's times are
+     phase 6b's).
  10. sample: float32, 2 full canvases, SAMPLE_CHECK_STEPS steps at temperature
      1e-4 against greedy (a row may leave greedy only at a step whose top two
      logits lie within 20 x temp, where the Gumbel noise can decide); bf16, 8
      full canvases, temperature 0.3, DECODE_STEPS steps: every sampled token
-     in the top 99 of its step's logits. Prints the time.
- 11. beam: bf16, 8 full canvases x beam 5, DECODE_STEPS steps (wall and device
-     time, kernels per step, images/s); float32 at 2 full canvases and
+     in the top 99 of its step's logits. Prints generate_batch's time.
+ 11. beam: bf16, 8 full canvases x beam 5, DECODE_STEPS steps (generate_batch's
+     time and images/s); float32 at 2 full canvases and
      BEAM_CHECK_STEPS steps (two chunks, across an int8 merge), with and
      without int8 self-KV: beam 1 equals greedy, and beam 5's best score
      equals the log-prob of its tokens fed through the same cache (and,
@@ -92,7 +105,10 @@ Phases, each fatal on failure:
      golden model's) is held against the plain version here, on fresh
      operands of the same strides and alignment, as phase 3 holds its cases.
 Every phase that encodes asserts 4 flash launches per encode on its main
-path. Then the seconds each phase took, one JSON line of per-kernel numbers,
+path; a CUDA graph's replay counts the launches its capture made, and a
+capture counts none. Phases 5 and 9-13 decode through TexOCR, so through
+CUDA graphs; the eager checks of phases 4 and 9-11 and evaluation's
+test_model stay eager. Then the seconds each phase took, one JSON line of per-kernel numbers,
 the card's name and power limit, and the last line {"ok": true, "device": {...}}.
 """
 
@@ -437,11 +453,12 @@ def time_flash(fa, gen) -> dict:
     return timings
 
 
-def check_golden(fa):
-    """The committed reference goldens through the port on the card."""
+def golden_model():
+    """The goldens' float32 model on the card, its weights loaded, and the
+    goldens' inputs and outputs."""
     from texocr_tpu_torch.checkpoint import load_state
     from texocr_tpu_torch.config import ModelConfig
-    from texocr_tpu_torch.models import OCRModel, greedy_decode
+    from texocr_tpu_torch.models import OCRModel
 
     config = {
         "img_size": (48, 128), "patch_size": 16, "vocab_size": 50, "max_length": 32,
@@ -456,8 +473,19 @@ def check_golden(fa):
     goldens = os.path.join(REPO, "tests", "goldens")
     model = OCRModel(ModelConfig.from_dict(config), device="cuda")
     model.load_state_dict(load_state(os.path.join(goldens, "model_state.npz")), strict=True)
-    io = np.load(os.path.join(goldens, "model_io.npz"))
-    images = torch.from_numpy(io["images"]).permute(0, 2, 3, 1).contiguous().cuda()
+    return model, np.load(os.path.join(goldens, "model_io.npz"))
+
+
+def golden_images(io) -> torch.Tensor:
+    return torch.from_numpy(io["images"]).permute(0, 2, 3, 1).contiguous().cuda()
+
+
+def check_golden(fa):
+    """The committed reference goldens through the port on the card."""
+    from texocr_tpu_torch.models import greedy_decode
+
+    model, io = golden_model()
+    images = golden_images(io)
     fa.flash_attention.launches = 0
     with torch.inference_mode():
         enc = model.encode(images)
@@ -528,12 +556,15 @@ def serve(fa, rng):
     engine = flagship_engine()
     requests = [canvas(rng, 160, 1008), canvas(rng, 96, 512), canvas(rng, 32, 128)]
     batch = np.stack([canvas(rng, 160, 1008) for _ in range(BATCH)])[..., None]
-    # Warm-up at every shape timed below, before the counted run: the first
-    # run at a shape pays for cuDNN's choice of convolution algorithms.
+    # Warm-up at every key timed below, before the counted run: the first
+    # call of a key captures its CUDA graphs (after one eager run, which pays
+    # for cuDNN's choice of convolution algorithms).
+    t0 = time.perf_counter()
     for img in requests:
-        engine(img, max_len=8)
-    engine.generate_batch(batch, max_len=8)
+        engine(img, max_len=DECODE_STEPS)
+    engine.generate_batch(batch, max_len=DECODE_STEPS)
     torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
 
     fa.flash_attention.launches = 0
     request_s = []
@@ -565,22 +596,27 @@ def serve(fa, rng):
     n_layers = FLAGSHIP["encoder"]["num_layers"]
     log(f"[serve] batch of {BATCH} (160, 1008): median {batch_s:.3f} s of "
         f"{[round(t, 3) for t in times]} s, {BATCH / batch_s:.2f} img/s; "
-        f"flash launches {launches} for {encodes} encodes")
+        f"flash launches {launches} for {encodes} encodes; the 4 keys' first calls (CUDA "
+        f"graph capture) {capture_s:.1f} s")
     if launches != n_layers * encodes:
         raise AssertionError(f"expected {n_layers} flash launches per encode, got {launches}")
     return {"request_s": request_s, "batch_s": batch_s, "launches": launches,
-            "engine": engine, "batch": batch}
+            "first_calls_s": capture_s, "engine": engine, "batch": batch}
 
 
 def device_kernels(fn, span=None) -> dict:
-    """One call of ``fn`` under torch.profiler: its wall time (host clock,
-    profiled), the device time summed over its kernels, their count, and the
-    8 kernels that take the most device time. With ``span``, also the device
-    time of the kernels run under host-side events whose name ends with it,
-    summed per event name."""
+    """One call of ``fn`` under torch.profiler (CUDA activity): its wall time
+    (host clock, profiled), the device time summed over its kernels (those a
+    CUDA graph replays included), their count, and the 8 kernels that take
+    the most device time. With ``span``, host events are recorded too, and
+    the result also holds the device time of the kernels run under host-side
+    events whose name ends with it, summed per event name."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # Host events only where a span needs them: they cost the profile most
+    # of its time at a decode's 100,000 kernels.
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if span else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -588,11 +624,18 @@ def device_kernels(fn, span=None) -> dict:
     by_name = {}
     count = 0
     spans = {}
-    for e in prof.events():
+    if span is None:
+        # The raw events: prof.events() would build a Python object, and a
+        # tree, for each of a decode's 100,000 kernels.
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA:
+                by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() * 1e-9
+                count += 1
+    for e in prof.events() if span is not None else ():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
             count += 1
-        elif span is not None and e.name.endswith(span):
+        elif e.name.endswith(span):
             spans[e.name] = spans.get(e.name, 0.0) + e.device_time_total * 1e-6
     if count == 0:
         raise AssertionError("torch.profiler recorded no device kernels")
@@ -633,6 +676,123 @@ def profile_serving(engine, batch) -> dict:
         f"{result['decode']['device_s']:.3f} s on the device, "
         f"{result['decode']['kernels_per_step']:.1f} kernels per step")
     log("[profile] " + json.dumps(result))
+    return result
+
+
+def graphs_phase(fa, engine, batch, profiled) -> dict:
+    """Phase 6b: the compiled decode (models.graphed.make_graphed_generate)
+    against the eager path on the serving batch, in every mode (see the
+    module docstring). ``profiled``: phase 6's eager encode and greedy
+    decode, the eager half of greedy's pair."""
+    from texocr_tpu_torch.models.attention import decode_chunks
+    from texocr_tpu_torch.models.generate import decode_state
+    from texocr_tpu_torch.models.graphed import GraphedGenerate, make_graphed_generate
+
+    x = to_input(batch)
+    result = {}
+    for name in ("greedy", "int8", "beam", "sample"):
+        model = (flagship_engine(kv_quant="int8", self_kv_quant="int8").model if name == "int8"
+                 else engine.model)
+        mode = name if name in ("beam", "sample") else "greedy"
+        steps = -(-DECODE_STEPS // 32) * 32 if mode == "beam" else DECODE_STEPS
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        args = dict(max_len=DECODE_STEPS, mode=mode, generator=gen, temp=0.3, beam_size=BEAM)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        graphed = make_graphed_generate(model, BATCH, batch.shape[1:3], DECODE_STEPS, mode,
+                                        beam_size=BEAM, generator=gen, temp=0.3)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        key_gb = (torch.cuda.memory_reserved() - reserved) / 1e9
+
+        # Bit-equal to the eager decode, the generator in the same state.
+        gen.manual_seed(1)
+        fa.flash_attention.launches = 0
+        tokens = graphed(batch)
+        launches = expect_launches(fa, 1, f"graphed {name}")
+        with torch.inference_mode():
+            cross_kv = model.decoder_cross_kv(model.encode(x))
+
+            def eager_decode():
+                state = decode_state(model, cross_kv, **args)
+                decode_chunks(state, state.run_chunk)
+                return state
+
+            gen.manual_seed(1)
+            state = eager_decode()
+        same = torch.equal(tokens, state.result())
+        note = f"tokens {'bit-equal to' if same else 'DIFFER FROM'} the eager path's"
+        if mode == "beam":
+            score, want = (s.result(return_scores=True)[1] for s in (graphed.state, state))
+            same = same and torch.equal(score, want)
+            note += f", best scores {'bit-equal' if torch.equal(score, want) else 'DIFFER'}"
+        if mode == "sample":  # the generator advances: the next calls draw anew
+            again = graphed(batch)
+            differ = not torch.equal(again, graphed(batch))
+            same = same and differ
+            note += f"; two successive calls {'differ' if differ else 'DRAW THE SAME'}"
+        del state
+        log(f"[graphs] {name}: capture {capture_s:.2f} s, {key_gb:.3f} GB reserved for the "
+            f"key; {note}; flash launches {launches} for 1 encode")
+        if not same:
+            raise AssertionError(f"the graphed {name} decode differs from the eager one")
+
+        # Paired, in this call: eager (phase 6's for greedy) and graph.
+        if name == "greedy":
+            eager = {k: profiled["decode"][k] for k in ("wall_s", "device_s", "kernels",
+                                                         "kernels_per_step",
+                                                         "device_busy_share")}
+        else:
+            with torch.inference_mode():
+                eager = decode_profile(eager_decode, steps)
+        graph = decode_profile(graphed.decode, steps)
+        result[name] = {"capture_s": capture_s, "key_gb": key_gb, "launches": launches,
+                        "encodes": 1, "steps": steps, "eager": eager, "graph": graph}
+        log(f"[graphs] {name}, {steps} steps, eager -> graph: wall {eager['wall_s']:.3f} -> "
+            f"{graph['wall_s']:.3f} s, device {eager['device_s']:.3f} -> {graph['device_s']:.3f} "
+            f"s, kernels a step {eager['kernels_per_step']:.1f} -> "
+            f"{graph['kernels_per_step']:.1f}, busy {100 * eager['device_busy_share']:.1f}% -> "
+            f"{100 * graph['device_busy_share']:.1f}%")
+        if name == "greedy":
+            graphed.images.copy_(torch.from_numpy(batch))
+            prof = device_kernels(graphed.encode)
+            result["encode"] = {
+                "eager": {k: profiled["encode"][k] for k in ("wall_s", "device_s", "kernels")},
+                "graph": {"wall_s": wall_s(graphed.encode), "device_s": prof["device_s"],
+                          "kernels": prof["kernels"]}}
+            eager_enc, graph_enc = result["encode"]["eager"], result["encode"]["graph"]
+            log(f"[graphs] encode, eager -> graph: wall {eager_enc['wall_s'] * 1e3:.2f} -> "
+                f"{graph_enc['wall_s'] * 1e3:.2f} ms, device {eager_enc['device_s'] * 1e3:.2f} "
+                f"-> {graph_enc['device_s'] * 1e3:.2f} ms, kernels {eager_enc['kernels']} -> "
+                f"{graph_enc['kernels']}")
+        del graphed, model
+    torch.cuda.empty_cache()
+
+    # The float32 golden model through the graphs, from its float inputs.
+    class FloatInput(GraphedGenerate):
+        def _input_buffer(self, n, hw, device):
+            return torch.zeros((n, *hw, 1), device=device)
+
+        def _encode(self):
+            return self.model.decoder_cross_kv(self.model.encode(self.images))
+
+    golden, io = golden_model()
+    want = io["greedy_tokens"][:, 1:]
+    graphed = FloatInput(golden, want.shape[0], io["images"].shape[2:], want.shape[1], "greedy")
+    graphed.images.copy_(golden_images(io))
+    fa.flash_attention.launches = 0
+    graphed.encode()
+    graphed.decode()
+    exact = np.array_equal(graphed.state.result().cpu().numpy(), want)
+    log(f"[graphs] golden float32 model through the graphs: greedy tokens "
+        f"{'exact' if exact else 'DIFFER'}; flash launches {fa.flash_attention.launches} "
+        f"(2 layers) for 1 encode")
+    if not (exact and fa.flash_attention.launches == 2):
+        raise AssertionError("the golden tokens differ through the graphs")
+    log("[graphs] " + json.dumps(result))
     return result
 
 
@@ -1138,12 +1298,12 @@ def decode_profile(fn, steps) -> dict:
             "device_busy_share": prof["device_s"] / wall, "top": prof["top"][:4]}
 
 
-def int8_phase(fa, batch, unquantized) -> dict:
+def int8_phase(fa, batch) -> dict:
     """Phase 9: int8 cross- and self-attention K/V on 8 full canvases."""
     from texocr_tpu_torch.models import greedy_decode
 
     engine = flagship_engine(kv_quant="int8", self_kv_quant="int8")
-    engine.generate_batch(batch, max_len=8)  # first run at the shape
+    engine.generate_batch(batch, max_len=DECODE_STEPS)  # the key's capture
     torch.cuda.synchronize()
     fa.flash_attention.launches = 0
     tokens = engine.generate_batch(batch, max_len=DECODE_STEPS)
@@ -1166,21 +1326,17 @@ def int8_phase(fa, batch, unquantized) -> dict:
     err = ((logits8 - logits_ref).abs().amax(-1) * same_prefix).max().item()
     scale = logits_ref.abs().amax(-1)[same_prefix].max().item()
     agree = 1.0 - differ.float().mean().item()
-    timing = decode_profile(lambda: greedy_decode(model, enc, **common), DECODE_STEPS)
     ok = err / scale < INT8_BUDGET and bool(torch.isfinite(logits8).all())
     log(f"[int8] batch {BATCH} (160, 1008) bf16, kv_quant and self_kv_quant int8, "
         f"{DECODE_STEPS} steps: max|logit err| {err:.4f} / max|logit| {scale:.4f} = "
         f"{err / scale:.5f} (budget {INT8_BUDGET}) over each row's steps up to its first "
         f"differing token (first differences {first.tolist()}); tokens agreeing "
-        f"{100 * agree:.1f}%; decode {timing['wall_s']:.3f} s wall, {timing['device_s']:.3f} s "
-        f"device, {timing['kernels_per_step']:.1f} kernels per step (unquantized, phase 6: "
-        f"{unquantized['wall_s']:.3f} s, {unquantized['device_s']:.3f} s, "
-        f"{unquantized['kernels_per_step']:.1f}); flash launches {launches} for 1 encode "
+        f"{100 * agree:.1f}%; flash launches {launches} for 1 encode (decode times: phase 6b) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("int8 decode logits outside the int8 budget")
     return {"launches": launches, "encodes": 1, "err_ratio": err / scale,
-            "tokens_agree": agree, "first_difference": first.tolist(), "decode": timing}
+            "tokens_agree": agree, "first_difference": first.tolist()}
 
 
 def sample_phase(fa, batch) -> dict:
@@ -1216,7 +1372,7 @@ def sample_phase(fa, batch) -> dict:
         raise AssertionError("sampling at a tiny temperature left greedy's argmax")
 
     engine = flagship_engine()
-    engine.generate_batch(batch, max_len=8, mode="sample")
+    engine.generate_batch(batch, max_len=DECODE_STEPS, mode="sample")  # the key's capture
     torch.cuda.synchronize()
     fa.flash_attention.launches = 0
     wall = wall_s(lambda: engine.generate_batch(batch, max_len=DECODE_STEPS, mode="sample"))
@@ -1229,19 +1385,15 @@ def sample_phase(fa, batch) -> dict:
                                     return_logits=True, **common)
     above = (logits > logits.gather(-1, tokens[..., None])).sum(-1)  # (B, steps)
     ok = bool((above < TOPK).all())
-    timing = decode_profile(lambda: sampled_decode(model, enc, gen, temp=0.3,
-                                                   max_len=DECODE_STEPS, **common),
-                            DECODE_STEPS)
     log(f"[sample] bf16, batch {BATCH} (160, 1008), temp 0.3, {DECODE_STEPS} steps: every "
         f"token in its step's top {TOPK} ({int(above.max())} logits above the worst) "
         f"{'ok' if ok else 'FAIL'}; generate_batch median {wall:.3f} s, "
-        f"{BATCH / wall:.2f} img/s; decode {timing['wall_s']:.3f} s wall, "
-        f"{timing['device_s']:.3f} s device, {timing['kernels_per_step']:.1f} kernels per "
-        f"step; flash launches {launches} for {REPEATS} encodes")
+        f"{BATCH / wall:.2f} img/s (decode times: phase 6b); flash launches {launches} for "
+        f"{REPEATS} encodes")
     if not ok:
         raise AssertionError("a sampled token lies outside the top-k filter")
     return {"launches": launches, "encodes": REPEATS, "generate_batch_s": wall,
-            "decode": timing, "tiny_temp_exact_rows": exact_rows, "departures": departures}
+            "tiny_temp_exact_rows": exact_rows, "departures": departures}
 
 
 def beam_phase(fa, batch) -> dict:
@@ -1251,25 +1403,17 @@ def beam_phase(fa, batch) -> dict:
     from texocr_tpu_torch.models.generate import DECODE_CHUNK
 
     engine = flagship_engine()
-    engine.generate_batch(batch, max_len=8, mode="beam", beam_size=BEAM)
+    engine.generate_batch(batch, max_len=DECODE_STEPS, mode="beam", beam_size=BEAM)  # capture
     torch.cuda.synchronize()
     fa.flash_attention.launches = 0
     wall = wall_s(lambda: engine.generate_batch(batch, max_len=DECODE_STEPS, mode="beam",
                                                 beam_size=BEAM))
     launches = expect_launches(fa, REPEATS, "beam generate_batch")
-    model, cfg = engine.model, engine.model.config
-    with torch.inference_mode():
-        enc = model.encode(to_input(batch))
     steps = -(-DECODE_STEPS // DECODE_CHUNK) * DECODE_CHUNK  # whole chunks (models/beam.py)
-    timing = decode_profile(lambda: beam_decode(model, enc, bos_token=cfg.bos_token,
-                                                eos_token=-1, pad_token=cfg.pad_token,
-                                                max_len=DECODE_STEPS, beam_size=BEAM), steps)
     log(f"[beam] bf16, batch {BATCH} x beam {BEAM} (160, 1008), {DECODE_STEPS} tokens "
-        f"({steps} steps): generate_batch median {wall:.3f} s, {BATCH / wall:.2f} img/s; decode "
-        f"{timing['wall_s']:.3f} s wall, {timing['device_s']:.3f} s device, "
-        f"{timing['kernels_per_step']:.1f} kernels per step; flash launches {launches} for "
-        f"{REPEATS} encodes")
-    del engine, model
+        f"({steps} steps): generate_batch median {wall:.3f} s, {BATCH / wall:.2f} img/s "
+        f"(decode times: phase 6b); flash launches {launches} for {REPEATS} encodes")
+    del engine
 
     checks = {}
     for quant in ("none", "int8"):
@@ -1300,7 +1444,7 @@ def beam_phase(fa, batch) -> dict:
         if not ok:
             raise AssertionError(f"beam search check failed (self_kv_quant {quant})")
     return {"launches": launches, "encodes": REPEATS, "generate_batch_s": wall,
-            "images_per_s": BATCH / wall, "decode": timing, "checks": checks}
+            "images_per_s": BATCH / wall, "checks": checks}
 
 
 def png_bytes(img: np.ndarray, rgb: bool = False) -> bytes:
@@ -1514,17 +1658,19 @@ def main() -> int:
     rng = np.random.default_rng(0)
     served = phase("serve", serve, fa, rng)
     profiled = phase("profile", profile_serving, served["engine"], served["batch"])
+    graphed = phase("graphs", graphs_phase, fa, served["engine"], served["batch"], profiled)
     del served["engine"]
     phase("encoder", check_encoder_paths, rng)
     trained = phase("train", train, fa, rng)
     train_row = phase("train timing", time_train_attention, fa, gen)
     resident = phase("device data", device_data_phase, fa, rng)
-    paths = {"int8": phase("int8", int8_phase, fa, served["batch"], profiled["decode"]),
+    paths = {"int8": phase("int8", int8_phase, fa, served["batch"]),
              "sample": phase("sample", sample_phase, fa, served["batch"]),
              "beam": phase("beam", beam_phase, fa, served["batch"]),
              "http": phase("http", http_phase, fa, rng)}
     evaluated = phase("eval", eval_phase, fa, rng)
     paths.update({f"eval {mode}": r for mode, r in evaluated.items()})
+    paths.update({f"graphs {mode}": graphed[mode] for mode in ("greedy", "int8", "beam", "sample")})
     launched = phase("launched shapes", check_launched, fa, gen, launch_log)
     log("[time] seconds per phase " + json.dumps(phase_s))
 
@@ -1560,10 +1706,12 @@ def main() -> int:
     log(json.dumps({"kernels": kernels}))
     log(f"[serve] median per-request s {served['request_s']}, batch img/s "
         f"{BATCH / served['batch_s']} on {card}")
-    log(f"[decode] batch {BATCH} x {DECODE_STEPS} steps on {card}: " + json.dumps(
-        {"greedy": profiled["decode"]["wall_s"],
-         **{name: paths[name]["decode"]["wall_s"] for name in ("int8", "sample", "beam")}})
-        + f" s wall; http p50 {paths['http']['p50_s']} s, p99 {paths['http']['p99_s']} s")
+    log(f"[decode] batch {BATCH} x {DECODE_STEPS} tokens on {card}, wall s eager and graph: "
+        + json.dumps({mode: [graphed[mode]["eager"]["wall_s"], graphed[mode]["graph"]["wall_s"]]
+                      for mode in ("greedy", "int8", "sample", "beam")})
+        + f"; encode wall s {graphed['encode']['eager']['wall_s']} and "
+        f"{graphed['encode']['graph']['wall_s']}; http p50 {paths['http']['p50_s']} s, "
+        f"p99 {paths['http']['p99_s']} s")
     log(f"[train] step s {trained['step_s']}, {trained['images_per_s_full']} images/s at "
         f"(160, 1008), peak memory {trained['peak_memory_gb']} GB on {card}")
     log(f"[device data] epoch s {[r['seconds'] for r in resident['epochs']]} against the host "

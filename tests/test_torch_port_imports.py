@@ -40,6 +40,8 @@ _CHILD = _BLOCKER + textwrap.dedent(
 
     names = [m.name for m in pkgutil.walk_packages(texocr_tpu_torch.__path__,
                                                    "texocr_tpu_torch.")]
+    # Every module, the compiled decode's included.
+    assert "texocr_tpu_torch.models.graphed" in names, names
     for name in names:
         importlib.import_module(name)
     for script in ("chip_smoke.py", "tools/flash_kernel_ab.py"):

@@ -36,7 +36,7 @@ where the JAX package selects rows through an ancestry one-hot.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -96,12 +96,27 @@ def chunk_start(cache: KVCache, t: int, chunk: int) -> int:
     return t0
 
 
-def reorder_cache(cache: KVCache, rows: torch.Tensor) -> None:
+def decode_chunks(state, run_chunk: Callable[[int], None]) -> None:
+    """Runs ``state``'s chunks 0, 1, ... through ``run_chunk(c)``, and stops
+    once every row is done: the host reads the done flags between chunks
+    only (the JAX package's ``while_loop`` condition)."""
+    for c in range(state.n_chunks):
+        run_chunk(c)
+        if c + 1 < state.n_chunks and bool(state.done.all()):
+            break
+
+
+def reorder_cache(cache: KVCache, rows: torch.Tensor, spare: KVCache) -> None:
     """Beam search: row i of every buffer (full precision, int8 and scales
-    together) becomes row ``rows[i]``'s."""
-    for layer in cache:
+    together) becomes row ``rows[i]``'s. The rows are gathered into
+    ``spare``'s buffer of the same name and shape, which then trades places
+    with the cache's: the cache only ever holds one of the same two buffers,
+    so a CUDA graph of the steps replays on fixed addresses. Over an even
+    number of steps each buffer is back where it started."""
+    for layer, other in zip(cache, spare):
         for name, buf in layer.items():
-            layer[name] = buf.index_select(0, rows)
+            torch.index_select(buf, 0, rows, out=other[name])
+            layer[name], other[name] = other[name], buf
 
 
 def _attend_split(q, cache, t0: int, t: int, scale: float) -> torch.Tensor:

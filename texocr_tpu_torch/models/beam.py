@@ -28,11 +28,95 @@ from typing import Optional
 
 import torch
 
-from texocr_tpu_torch.models.attention import chunk_size, chunk_start, reorder_cache
+from texocr_tpu_torch.models.attention import (
+    chunk_size,
+    chunk_start,
+    decode_chunks,
+    reorder_cache,
+)
 from texocr_tpu_torch.models.ocr_model import OCRModel
 from texocr_tpu_torch.utils import top_k_lower_index
 
 NEG_INF = -1e30
+
+
+class BeamState:
+    """A beam decode over precomputed cross-attention K/V (B, ...):
+    ``tokens`` (B, beam, steps), ``scores``, ``done``, ``cur`` and ``lengths``
+    (B, beam), the self-attention cache of B * beam rows and the spare
+    buffers ``reorder_cache`` gathers into, all allocated here once.
+    ``run_chunk`` and ``result`` as ``generate.DecodeState``'s."""
+
+    def __init__(self, model: OCRModel, cross_kv, *, bos_token: int, eos_token: int,
+                 pad_token: int, max_len: int, beam_size: int = 5,
+                 enc_mask: Optional[torch.Tensor] = None):
+        kv = next(iter(cross_kv[0].values()))
+        batch, device = kv.shape[0], kv.device
+        table = model.config.decoder.max_length
+        self.model, self.cross_kv, self.enc_mask, self.beam = model, cross_kv, enc_mask, beam_size
+        self.bos_token, self.eos_token = bos_token, eos_token
+        self.max_len, self.chunk = chunk_size(max_len, table)
+        self.steps = min(-(-self.max_len // self.chunk) * self.chunk, table)
+        self.n_chunks = -(-self.steps // self.chunk)
+        self.vocab = model.config.decoder.vocab_size
+        self.cache = model.decoder_init_cache(batch * beam_size, self.steps, device)
+        self.spare = model.decoder_init_cache(batch * beam_size, self.steps, device)
+        self.tokens = torch.empty((batch, beam_size, self.steps), dtype=torch.int64,
+                                  device=device)
+        self.scores = torch.empty((batch, beam_size), dtype=torch.float32, device=device)
+        self.done = torch.empty((batch, beam_size), dtype=torch.bool, device=device)
+        self.cur = torch.empty((batch, beam_size), dtype=torch.int64, device=device)
+        self.lengths = torch.empty((batch, beam_size), dtype=torch.int64, device=device)
+        self.pad_token = pad_token
+        self.pad_only = torch.full((self.vocab,), NEG_INF, dtype=torch.float32, device=device)
+        self.pad_only[pad_token] = 0.0
+        self.first_row = torch.arange(batch, device=device)[:, None] * beam_size
+
+    def run_chunk(self, c: int) -> None:
+        """Steps c * chunk .. min((c + 1) * chunk, steps) - 1, in place.
+        Chunk 0 first resets the state to one live BOS beam per image."""
+        batch, beam, vocab = self.scores.shape[0], self.beam, self.vocab
+        if c == 0:
+            self.tokens.fill_(self.pad_token)
+            self.scores.fill_(NEG_INF)
+            self.scores[:, 0] = 0.0
+            self.done.zero_()
+            self.cur.fill_(self.bos_token)
+            self.lengths.zero_()
+        for t in range(c * self.chunk, min((c + 1) * self.chunk, self.steps)):
+            t0 = chunk_start(self.cache, t, self.chunk)
+            logits = self.model.decoder_step(self.cur.reshape(-1), t, self.cache, self.cross_kv,
+                                             enc_mask=self.enc_mask, t0=t0)
+            logp = torch.log_softmax(logits.float(), dim=-1).view(batch, beam, vocab)
+            # Finished beams may only emit PAD, at zero cost.
+            logp = torch.where(self.done[..., None], self.pad_only, logp)
+            flat = (self.scores[..., None] + logp).view(batch, beam * vocab)
+            scores, top = top_k_lower_index(flat, beam)
+            parent, tok = top // vocab, top % vocab
+            self.scores.copy_(scores)
+            self.tokens.copy_(self.tokens.gather(1, parent[..., None].expand(-1, -1, self.steps)))
+            self.tokens[:, :, t] = tok
+            parent_done = self.done.gather(1, parent)
+            self.lengths.copy_(torch.where(parent_done, self.lengths.gather(1, parent), t + 1))
+            self.done.copy_(parent_done | (tok == self.eos_token))
+            self.cur.copy_(tok)
+            reorder_cache(self.cache, (self.first_row + parent).reshape(-1), self.spare)
+
+    def result(self, length_penalty: float = 0.0, return_scores: bool = False):
+        """The best beam's (B, max_len) tokens (with ``return_scores`` also
+        its float32 log-prob sum), ranked by score / ((5 + len) / 6) **
+        ``length_penalty`` (GNMT; 0 ranks by the raw sum). New tensors."""
+        if length_penalty > 0.0:
+            norm = ((5.0 + self.lengths.float()) / 6.0) ** length_penalty
+            ranked = self.scores / norm.clamp_min(1e-6)
+        else:
+            ranked = self.scores
+        best = ranked.argmax(dim=1)
+        rows = torch.arange(best.shape[0], device=best.device)
+        best_tokens = self.tokens[rows, best, :self.max_len]
+        if return_scores:
+            return best_tokens, self.scores[rows, best]
+        return best_tokens
 
 
 @torch.inference_mode()
@@ -54,54 +138,11 @@ def beam_decode(
     log-prob sum). ``length_penalty`` alpha ranks beams by
     score / ((5 + len) / 6) ** alpha (GNMT); 0 ranks by the raw sum.
     ``enc_mask``: (B, Nk) bool, False at padded encoder positions."""
-    batch, device = enc.shape[0], enc.device
-    max_len, chunk = chunk_size(max_len, model.config.decoder.max_length)
-    steps = min(-(-max_len // chunk) * chunk, model.config.decoder.max_length)
-    vocab = model.config.decoder.vocab_size
-    cross_kv = model.decoder_cross_kv(enc)
-    cache = model.decoder_init_cache(batch * beam_size, steps, device)
-
-    tokens = torch.full((batch, beam_size, steps), pad_token, dtype=torch.int64, device=device)
-    scores = torch.full((batch, beam_size), NEG_INF, dtype=torch.float32, device=device)
-    scores[:, 0] = 0.0
-    done = torch.zeros(batch, beam_size, dtype=torch.bool, device=device)
-    cur = torch.full((batch, beam_size), bos_token, dtype=torch.int64, device=device)
-    lengths = torch.zeros(batch, beam_size, dtype=torch.int64, device=device)
-    pad_only = torch.full((vocab,), NEG_INF, dtype=torch.float32, device=device)
-    pad_only[pad_token] = 0.0
-    first_row = torch.arange(batch, device=device)[:, None] * beam_size
-
-    for t in range(steps):
-        t0 = chunk_start(cache, t, chunk)
-        logits = model.decoder_step(cur.reshape(-1), t, cache, cross_kv, enc_mask=enc_mask,
-                                    t0=t0)
-        logp = torch.log_softmax(logits.float(), dim=-1).view(batch, beam_size, vocab)
-        # Finished beams may only emit PAD, at zero cost.
-        logp = torch.where(done[..., None], pad_only, logp)
-        flat = (scores[..., None] + logp).view(batch, beam_size * vocab)
-        scores, top = top_k_lower_index(flat, beam_size)
-        parent, tok = top // vocab, top % vocab
-        tokens = tokens.gather(1, parent[..., None].expand(-1, -1, steps))
-        tokens[:, :, t] = tok
-        parent_done = done.gather(1, parent)
-        lengths = torch.where(parent_done, lengths.gather(1, parent), t + 1)
-        done = parent_done | (tok == eos_token)
-        cur = tok
-        reorder_cache(cache, (first_row + parent).reshape(-1))
-        if (t + 1) % chunk == 0 and bool(done.all()):
-            break
-
-    if length_penalty > 0.0:
-        norm = ((5.0 + lengths.float()) / 6.0) ** length_penalty
-        ranked = scores / norm.clamp_min(1e-6)
-    else:
-        ranked = scores
-    best = ranked.argmax(dim=1)
-    rows = torch.arange(batch, device=device)
-    best_tokens = tokens[rows, best, :max_len]
-    if return_scores:
-        return best_tokens, scores[rows, best]
-    return best_tokens
+    state = BeamState(model, model.decoder_cross_kv(enc), bos_token=bos_token,
+                      eos_token=eos_token, pad_token=pad_token, max_len=max_len,
+                      beam_size=beam_size, enc_mask=enc_mask)
+    decode_chunks(state, state.run_chunk)
+    return state.result(length_penalty, return_scores)
 
 
 @torch.inference_mode()

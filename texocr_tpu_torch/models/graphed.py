@@ -1,0 +1,157 @@
+"""The compiled decode: ``make_graphed_generate``, the port of the JAX
+package's ``make_jitted_generate`` and of its serving wrapper's per-shape jit
+cache, as CUDA graphs.
+
+The JAX package compiles one XLA program per (canvas, max_len, mode): the
+uint8 to float conversion, the encode, the cross-attention K/V and a
+``lax.while_loop`` over ``lax.scan`` chunks of ``DECODE_CHUNK`` steps. The port
+captures the same work once per key and replays it:
+
+- an encode graph: ``1 - u8 / 255``, ``OCRModel.encode`` (its flash kernel
+  launches included) and the cross-attention K/V, into the graph's own
+  output buffers;
+- one graph per chunk (``DecodeState.run_chunk`` / ``BeamState.run_chunk``,
+  chunk 0 resetting the state to BOS). The step index t and the int8 prefix
+  length t0 stay Python ints, as in the eager loop, so every graph runs the
+  eager path's kernels on the eager path's shapes and its tokens equal the
+  eager path's bit for bit. (One graph of a step with t on the device would
+  read the self-attention cache at a fixed width under a mask: other
+  reduction lengths, other numbers.)
+
+Between chunk replays the host reads the done flags (``decode_chunks``), as
+the eager loop does and as the JAX ``while_loop``'s condition. A replay
+launches the flash kernel without passing through its wrapper, so each graph
+keeps the count of flash launches its capture made and adds it to
+``flash_attention.launches`` when it replays; a capture itself launches
+nothing on the device and counts nothing.
+
+Capture follows ``torch.cuda.graphs``' rules: every region runs once
+eagerly on a side stream first (cuDNN's and cuBLAS's first calls at a shape,
+and the flash library's build at its first launch), all graphs of a key
+share one memory pool and replay in the order they were captured, and one
+lock per key keeps its replays from overlapping. A sampled key registers its
+generator with every graph (graph-safe RNG): a replay draws what the eager
+decode draws from the generator's state at that moment, and advances it as
+the eager decode would.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional, Tuple
+
+import torch
+
+from texocr_tpu_torch.models.attention import decode_chunks
+from texocr_tpu_torch.models.generate import check_mode, decode_state
+from texocr_tpu_torch.models.ocr_model import OCRModel
+from texocr_tpu_torch.ops import flash_attention
+
+# CUDA allows one stream capture at a time in a process.
+_CAPTURE_LOCK = threading.Lock()
+
+
+class GraphedGenerate:
+    """``(B, H, W, 1) uint8 canvases -> (B, max_len) int64 tokens`` on the
+    model's CUDA device, from graphs captured at construction (see
+    ``make_graphed_generate``). ``encode()`` and ``decode()`` replay the two
+    halves on the canvases last copied in, for timing them apart."""
+
+    def __init__(self, model: OCRModel, batch: int, canvas: Tuple[int, int], max_len: int,
+                 mode: str, *, beam_size: int = 5, generator: Optional[torch.Generator] = None,
+                 temp: float = 0.3):
+        device = next(model.parameters()).device
+        if device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device; the model is on {device}")
+        check_mode(mode, generator)
+        self.model = model
+        self.generator = generator if mode == "sample" else None
+        self.decode_args = dict(max_len=max_len, mode=mode, generator=generator, temp=temp,
+                                beam_size=beam_size)
+        self.images = self._input_buffer(batch, canvas, device)
+        self.lock = threading.Lock()
+        self._pool = torch.cuda.graph_pool_handle()
+        self._stream = torch.cuda.Stream(device)
+        with _CAPTURE_LOCK, torch.inference_mode():
+            self._warm_up()
+            self._encode_graph, self.cross_kv = self._capture(self._encode)
+            self.state = decode_state(model, self.cross_kv, **self.decode_args)
+            self._chunk_graphs = [self._capture(lambda c=c: self.state.run_chunk(c))[0]
+                                  for c in range(self.state.n_chunks)]
+
+    def _input_buffer(self, batch: int, canvas: Tuple[int, int], device) -> torch.Tensor:
+        """The static input: white uint8 canvases."""
+        return torch.full((batch, *canvas, 1), 255, dtype=torch.uint8, device=device)
+
+    def _encode(self):
+        """The encode graph's work: the input as the model takes it, the
+        encoder, the cross-attention K/V."""
+        return self.model.decoder_cross_kv(self.model.encode(1.0 - self.images.float() / 255.0))
+
+    def _warm_up(self) -> None:
+        """Every region once, eagerly, on the capture stream; the generator
+        is left as it was."""
+        rng = None if self.generator is None else self.generator.get_state()
+        self._stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self._stream):
+            state = decode_state(self.model, self._encode(), **self.decode_args)
+            for c in range(state.n_chunks):
+                state.run_chunk(c)
+        torch.cuda.current_stream().wait_stream(self._stream)
+        torch.cuda.synchronize()
+        if rng is not None:
+            self.generator.set_state(rng)
+
+    def _capture(self, fn):
+        """(a graph of ``fn()`` with its flash launch count, what ``fn``
+        returned: tensors of the graph's pool that every replay rewrites)."""
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        before = flash_attention.flash_attention.launches
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            out = fn()
+        launches = flash_attention.flash_attention.launches - before
+        flash_attention.flash_attention.launches = before
+        return (graph, launches), out
+
+    @staticmethod
+    def _replay(entry) -> None:
+        graph, launches = entry
+        graph.replay()
+        flash_attention.flash_attention.launches += launches
+
+    def encode(self) -> None:
+        self._replay(self._encode_graph)
+
+    def decode(self) -> None:
+        decode_chunks(self.state, lambda c: self._replay(self._chunk_graphs[c]))
+
+    def __call__(self, images) -> torch.Tensor:
+        images = torch.as_tensor(images)
+        if images.shape != self.images.shape or images.dtype != torch.uint8:
+            raise ValueError(f"expected uint8 canvases of shape {tuple(self.images.shape)}, "
+                             f"got {images.dtype} {tuple(images.shape)}")
+        with self.lock, torch.inference_mode():
+            self.images.copy_(images)
+            self.encode()
+            self.decode()
+            # A copy: the next call rewrites the state's buffers.
+            return self.state.result().clone()
+
+
+def make_graphed_generate(model: OCRModel, batch: int, canvas: Tuple[int, int], max_len: int,
+                          mode: str = "greedy", *, beam_size: int = 5,
+                          generator: Optional[torch.Generator] = None,
+                          temp: float = 0.3) -> GraphedGenerate:
+    """``generate`` compiled for one shape: ``batch`` canvases of ``canvas``
+    (H, W) as uint8, decoded to ``max_len`` tokens in ``mode`` ("greedy",
+    "sample" at ``temp`` with ``generator``, or "beam" ``beam_size`` wide;
+    int8 caches as the model's config sets them). Captures the encode graph
+    and one graph per chunk now, and returns the callable that replays
+    them; its tokens equal ``generate``'s on ``1 - u8 / 255``. A model on the
+    CPU raises ``ValueError``: CUDA graphs need a CUDA device, and nothing
+    falls back."""
+    return GraphedGenerate(model, batch, canvas, max_len, mode, beam_size=beam_size,
+                           generator=generator, temp=temp)

@@ -14,8 +14,10 @@ Usage:
 
 The JAX package's ``prefix_tiers`` option is left out: it sets how many
 compiled variants of the TPU decode read the self-attention prefix, and the
-port compiles nothing per shape. The fixed batch sizes stay: they bound the
-shapes the card sees (cuDNN picks its convolution algorithms per shape).
+port's CUDA graphs read the prefix at its true length at every step. The
+fixed batch sizes stay: on a CUDA engine each (canvas, batch size) is one set
+of CUDA graphs, captured on its first batch, as the JAX package compiles one
+program per shape; ``warmup`` captures them all before the first request.
 """
 
 from __future__ import annotations
@@ -66,7 +68,8 @@ class ServingBatcher:
 
     def warmup(self, canvas_shapes) -> None:
         """Run every (canvas, batch size) pair once up front, so no request
-        pays for a first run at its shape. ``canvas_shapes``: (H, W) pairs."""
+        pays for a first run at its shape (on a CUDA engine, the capture of its
+        graphs). ``canvas_shapes``: (H, W) pairs."""
         for h, w in canvas_shapes:
             for n in self.batch_sizes:
                 canvases = np.full((n, h, w, 1), 255, np.uint8)

@@ -11,10 +11,17 @@ uint8 and becomes ``1 - u8 / 255`` there. Then encode, decode (``greedy``,
 decode plus ``process_output`` up to EOS or PAD. Sampling draws from a
 ``torch.Generator`` on the device, seeded with ``config['seed']``, which
 advances with every sampled call.
+
+On a CUDA device every batch decodes through CUDA graphs, captured on the
+first call of each (canvas, batch, max_len, mode, beam width or temperature)
+and replayed after (``models.graphed.make_graphed_generate``), as the JAX
+wrapper keeps one jitted program per shape. An engine on the CPU runs the
+eager ``generate``; the tokens are the same.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -24,6 +31,7 @@ import torch.nn.functional as F
 from texocr_tpu_torch.checkpoint.convert import POS_EMBED_KEY, load_state
 from texocr_tpu_torch.config import ModelConfig, with_defaults
 from texocr_tpu_torch.models import OCRModel, generate
+from texocr_tpu_torch.models.graphed import GraphedGenerate, make_graphed_generate
 from texocr_tpu_torch.tokenizer import RegexBPETokenizer
 from texocr_tpu_torch.utils import pad_to_multiple, process_output
 
@@ -48,6 +56,8 @@ class TexOCR:
             self.model.load_state_dict(state_dict, strict=True)
         self.model.eval()
         self.generator = torch.Generator(device=self.device).manual_seed(config.get("seed", 42))
+        self._compiled: Dict[Tuple, GraphedGenerate] = {}
+        self._compiling = threading.Lock()
 
     # -- preprocessing ---------------------------------------------------------
 
@@ -102,11 +112,27 @@ class TexOCR:
                                      mode=mode, beam_size=beam_size)
         return self.postprocess(tokens[0].cpu().numpy())
 
+    def _decode_fn(self, shape: Tuple[int, ...], max_len: int, mode: str, beam_size: int,
+                   temp: float) -> GraphedGenerate:
+        """The graphs of one key, captured on its first call."""
+        batch, h, w = shape[:3]
+        key = ((h, w), batch, max_len, mode, beam_size if mode == "beam" else None,
+               temp if mode == "sample" else None)
+        with self._compiling:
+            if key not in self._compiled:
+                self._compiled[key] = make_graphed_generate(
+                    self.model, batch, (h, w), max_len, mode, beam_size=beam_size,
+                    generator=self.generator, temp=temp)
+            return self._compiled[key]
+
     def generate_batch(self, images, max_len: int = 350, temp: float = 0.3,
                        mode: str = "greedy", beam_size: int = 5) -> torch.Tensor:
         """(B, H, W, 1) uint8 canvases (numpy or tensor) -> (B, max_len) int64
         token ids on the model's device, PAD after EOS."""
-        u8 = torch.as_tensor(images).to(self.device)
+        u8 = torch.as_tensor(images)
+        if self.device.type == "cuda":
+            return self._decode_fn(tuple(u8.shape), max_len, mode, beam_size, temp)(u8)
+        u8 = u8.to(self.device)
         return generate(self.model, 1.0 - u8.float() / 255.0, max_len=max_len, mode=mode,
                         generator=self.generator, temp=temp, beam_size=beam_size)
 
