@@ -98,18 +98,38 @@ Phases, each fatal on failure:
  13. eval: evaluation.evaluate.test_model on a pickled test split of two
      batches of 8 full canvases, greedy and beam 5: its metrics must equal
      those computed from TexOCR.generate_batch on the same collated batches.
+ 13b. variants: the model variants at the flagship's full width, bf16, seeded
+     random weights, on the serving batch of 8 full canvases. patch
+     (encoder.embed_layer: patch) and glu false (the decoder's dense + gelu
+     MLP): a greedy TexOCR.generate_batch of DECODE_STEPS tokens through the
+     CUDA graphs, fatal unless bit-equal to the eager generate, with 4 flash
+     launches per encode and the float32 encode on the kernel path within
+     F32_TOL of the plain path (glu false keeps the flagship's encoder, so
+     phase 7's reading stands for it); prints encode and decode wall (graph
+     replays). no cross (decoder.cross_attend: false): VARIANT_TRAIN_STEPS
+     train steps at batch TRAIN_BATCH on full canvases, fatal unless the
+     losses are finite and no flash kernel launches (the step does not encode:
+     the decoder reads no encoder output), and unless TexOCR.generate_batch
+     and make_graphed_generate raise ValueError; prints step time and peak
+     memory. maps: a teacher-forced decoder(..., return_attn=True) at batch 8
+     x MAPS_TOKENS, fatal unless its cross maps are (8, 8, MAPS_TOKENS, 631),
+     every row sums to 1 within F32_TOL and no flash kernel launches (the maps
+     take the math path); then the attention-maps tool's main on one
+     full-canvas PNG, fatal unless it writes its overlays and summary.json and
+     an overlay reads back through decode_png at (160, 1008).
  14. launched shapes: every flash launch from phase 3 on is recorded (shapes,
      type, strides, alignment, scale, causal, kv_lens) by the phase that made
-     it; each signature that phases 4-13 launched and phase 3 did not check
+     it; each signature that phases 4-13b launched and phase 3 did not check
      (the batcher's padded batches, the float32 checks at 2 canvases, the
      golden model's) is held against the plain version here, on fresh
      operands of the same strides and alignment, as phase 3 holds its cases.
 Every phase that encodes asserts 4 flash launches per encode on its main
 path; a CUDA graph's replay counts the launches its capture made, and a
-capture counts none. Phases 5 and 9-13 decode through TexOCR, so through
-CUDA graphs; the eager checks of phases 4 and 9-11 and evaluation's
-test_model stay eager. Then the seconds each phase took, one JSON line of per-kernel numbers,
-the card's name and power limit, and the last line {"ok": true, "device": {...}}.
+capture counts none. Phases 5, 9-13 and 13b decode through TexOCR, so
+through CUDA graphs; the eager checks of phases 4, 9-11 and 13b and
+evaluation's test_model stay eager. Then the seconds each phase took, one
+JSON line of per-kernel numbers, the card's name and power limit, and the last
+line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -177,6 +197,9 @@ HTTP_REQUESTS = 32
 HTTP_CONCURRENCY = 8
 EVAL_BATCH = 8
 EVAL_MAX_LEN = 276  # evaluation's decode budget (test_model's default)
+VARIANT_TRAIN_STEPS = 3  # the no-cross variant's train steps
+MAPS_TOKENS = DECODE_STEPS + 1  # BOS and a full decode, as the attention-maps tool replays it
+MAPS_PNGS = 8  # the attention-maps tool's --max_tokens on the card
 
 def log(msg):
     print(msg, flush=True)
@@ -796,28 +819,38 @@ def graphs_phase(fa, engine, batch, profiled) -> dict:
     return result
 
 
-def check_encoder_paths(rng):
-    """Full-canvas flagship encoder, float32: kernel path against plain path."""
+def check_encoder_paths(rng) -> float:
+    """Full-canvas flagship encoder, float32: kernel path against plain path;
+    returns the largest difference."""
+    err = encode_paths_err(rng, {})
+    tol = 1e-3
+    log(f"[encoder] full canvas f32, kernel vs plain path: max err {err:.3e} (tol {tol:g}) "
+        f"{'ok' if err <= tol else 'FAIL'}")
+    if not err <= tol:
+        raise AssertionError("encoder kernel path disagrees with the plain path")
+    return err
+
+
+def encode_paths_err(rng, overrides) -> float:
+    """The full-canvas encoder of the flagship with ``overrides`` in float32
+    (TF32 off), kernel path against plain path on 2 canvases: the largest
+    absolute difference. Fails on a non-finite kernel-path output."""
     from texocr_tpu_torch.config import FLAGSHIP, ModelConfig
     from texocr_tpu_torch.models import OCRModel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    outs = []
     images = np.stack([canvas(rng, 160, 1008) for _ in range(2)])[..., None]
-    x = 1.0 - torch.from_numpy(images).cuda().float() / 255.0
+    outs = []
     for use_flash in (True, False):
-        cfg = ModelConfig.from_dict(dict(FLAGSHIP, dtype="float32", use_flash_attention=use_flash))
-        model = OCRModel(cfg, device="cuda", seed=0)
+        cfg = dict(FLAGSHIP, dtype="float32", use_flash_attention=use_flash, **overrides)
+        model = OCRModel(ModelConfig.from_dict(cfg), device="cuda", seed=0)
         with torch.inference_mode():
-            outs.append(model.encode(x))
+            outs.append(model.encode(to_input(images)))
         del model
-    err = (outs[0] - outs[1]).abs().max().item()
-    tol = 1e-3
-    log(f"[encoder] full canvas f32, kernel vs plain path: max err {err:.3e} (tol {tol:g}) "
-        f"{'ok' if err <= tol else 'FAIL'}")
-    if not (err <= tol and torch.isfinite(outs[0]).all()):
-        raise AssertionError("encoder kernel path disagrees with the plain path")
+    if not torch.isfinite(outs[0]).all():
+        raise AssertionError("non-finite float32 encode on the kernel path")
+    return (outs[0] - outs[1]).abs().max().item()
 
 
 def event_ms(fn, iters=5) -> float:
@@ -1611,6 +1644,197 @@ def eval_phase(fa, rng) -> dict:
     return out
 
 
+def variant_overrides(name) -> dict:
+    """The config keys of a model variant, over the flagship's."""
+    from texocr_tpu_torch.config import FLAGSHIP
+
+    return {"patch": {"encoder": dict(FLAGSHIP["encoder"], embed_layer="patch")},
+            "glu false": {"glu": False},
+            "no cross": {"decoder": dict(FLAGSHIP["decoder"], cross_attend=False)}}[name]
+
+
+def serve_variant(fa, name, batch, rng, flagship_encode_err) -> dict:
+    """A variant's greedy generate_batch through the CUDA graphs against the
+    eager generate, its launches, its float32 encode on both paths and its
+    encode and decode wall times. A variant that keeps the flagship's
+    encoder (``glu`` reaches only the decoder) reuses phase 7's reading of
+    that encoder, ``flagship_encode_err``, instead of encoding again."""
+    from texocr_tpu_torch.models import generate
+
+    overrides = variant_overrides(name)
+    engine = flagship_engine(**overrides)
+    t0 = time.perf_counter()
+    engine.generate_batch(batch, max_len=DECODE_STEPS)  # the key's capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    fa.flash_attention.launches = 0
+    tokens = engine.generate_batch(batch, max_len=DECODE_STEPS)
+    torch.cuda.synchronize()
+    launches = expect_launches(fa, 1, f"{name} generate_batch")
+    with torch.inference_mode():
+        eager = generate(engine.model, to_input(batch), max_len=DECODE_STEPS)
+    same = tokens.shape == (BATCH, DECODE_STEPS) and torch.equal(tokens, eager)
+    graphed = engine._decode_fn(tuple(batch.shape), DECODE_STEPS, "greedy", BEAM, 0.3)
+    encode_s, decode_s = wall_s(graphed.encode), wall_s(graphed.decode)
+    own_encoder = "encoder" in overrides
+    err = encode_paths_err(rng, overrides) if own_encoder else flagship_encode_err
+    ok = same and err <= F32_TOL
+    log(f"[variants] {name}: batch {BATCH} (160, 1008) bf16 greedy {DECODE_STEPS} tokens "
+        f"through the graphs, tokens {'bit-equal to' if same else 'DIFFER FROM'} the eager "
+        f"generate's; flash launches {launches} for 1 encode; encode {encode_s * 1e3:.2f} ms, "
+        f"decode {decode_s:.3f} s wall (graph replays, median of {REPEATS}); capture "
+        f"{capture_s:.2f} s; float32 encode kernel vs plain path max err {err:.3e} "
+        f"({'this encoder' if own_encoder else 'the flagship encoder, phase 7'}; tol "
+        f"{F32_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the {name} variant failed on the card")
+    return {"launches": launches, "encodes": 1, "encode_s": encode_s, "decode_s": decode_s,
+            "capture_s": capture_s, "f32_encode_err": err}
+
+
+def no_cross_variant(fa, rng) -> dict:
+    """The decoder without cross-attention: VARIANT_TRAIN_STEPS train steps
+    at batch TRAIN_BATCH on full canvases, and every decode entry point
+    refusing it."""
+    from texocr_tpu_torch.config import FLAGSHIP, ModelConfig
+    from texocr_tpu_torch.models import OCRModel
+    from texocr_tpu_torch.models.graphed import make_graphed_generate
+    from texocr_tpu_torch.training.optimizers import get_optimizer
+    from texocr_tpu_torch.training.train_step import create_train_state, make_train_step, put_batch
+
+    overrides = variant_overrides("no cross")
+    model = OCRModel(ModelConfig.from_dict(dict(FLAGSHIP, **overrides)), device="cuda", seed=0)
+    state = create_train_state(model, get_optimizer("Adam", {"lr": 0.0005}, model.parameters()),
+                               seed=42)
+    train_step = make_train_step()
+    images = 1.0 - np.stack([canvas(rng, 160, 1008) for _ in range(TRAIN_BATCH)])[
+        ..., None].astype(np.float32) / 255.0
+    rows = train_tokens(rng, TRAIN_BATCH)
+    labels = np.full((TRAIN_BATCH, -(-(max(map(len, rows)) + 2) // 32) * 32), 999, np.int64)
+    for i, row in enumerate(rows):
+        labels[i, : len(row) + 2] = [998, *row, 997]
+    x, y = put_batch(images, labels, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = 0
+    losses, step_s = [], []
+    for _ in range(VARIANT_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(train_step(state, x, y)["loss"]))  # the read synchronises
+        step_s.append(time.perf_counter() - t0)
+    launches = fa.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    refused = []
+    engine = flagship_engine(**overrides)
+    for what, call in (
+        ("TexOCR.generate_batch", lambda: engine.generate_batch(np.full((1, 160, 1008, 1), 255,
+                                                                        np.uint8))),
+        ("make_graphed_generate", lambda: make_graphed_generate(model, 1, (160, 1008),
+                                                                DECODE_STEPS)),
+    ):
+        try:
+            call()
+        except ValueError as e:
+            refused.append(what if "cross_attend: false" in str(e) else f"{what}: {e}")
+    ok = (np.isfinite(losses).all() and launches == 0
+          and refused == ["TexOCR.generate_batch", "make_graphed_generate"])
+    log(f"[variants] no cross: {VARIANT_TRAIN_STEPS} train steps at batch {TRAIN_BATCH} "
+        f"{labels.shape[1]} tokens, full canvases, bf16: losses {losses}, step s "
+        f"{[round(t, 4) for t in step_s]} (the first pays the warm-up), peak memory "
+        f"{peak_gb:.2f} GB; flash launches {launches} (the decoder reads no encoder output, "
+        f"so the step does not encode); ValueError from {refused} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the no-cross variant failed on the card")
+    return {"launches": launches, "encodes": 0, "losses": losses, "step_s": step_s,
+            "peak_memory_gb": peak_gb, "tokens": int(labels.shape[1])}
+
+
+def maps_variant(fa, batch, rng) -> dict:
+    """A teacher-forced decoder(..., return_attn=True) replay at batch BATCH x
+    MAPS_TOKENS on the flagship, then the attention-maps tool's main on one
+    full-canvas PNG."""
+    from texocr_tpu_torch.config import FLAGSHIP
+    from texocr_tpu_torch.serving.image_io import decode_png, encode_png
+    from texocr_tpu_torch.tokenizer import DEFAULT_VOCAB_PATH
+    from texocr_tpu_torch.tools import attention_maps
+
+    model = flagship_engine().model
+    n_layers = FLAGSHIP["decoder"]["num_layers"]
+    seq = torch.from_numpy(rng.integers(0, 997, (BATCH, MAPS_TOKENS))).cuda()
+    seq[:, 0] = 998
+    with torch.inference_mode():
+        enc = model.encode(to_input(batch))
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        logits, maps = model.dec(seq, enc, return_attn=True)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        launches = fa.flash_attention.launches
+        cross = maps[1::2]
+        shapes = sorted({tuple(m.shape) for m in cross})
+        row_err = max((m.sum(-1) - 1).abs().max().item() for m in maps)
+    want = (BATCH, 8, MAPS_TOKENS, enc.shape[1])
+    ok = (len(maps) == 2 * n_layers and shapes == [want] and row_err <= F32_TOL
+          and launches == 0 and bool(torch.isfinite(logits).all()))
+    log(f"[variants] maps: decoder(return_attn=True) at batch {BATCH} x {MAPS_TOKENS} tokens, "
+        f"bf16: {len(maps)} maps, cross maps {shapes} float32, rows sum to 1 within "
+        f"{row_err:.2e} (tol {F32_TOL:g}); flash launches {launches}; {replay_s * 1e3:.1f} ms "
+        f"wall {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the attention maps failed on the card")
+    del logits, maps, cross, enc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png, cfg, out = (os.path.join(tmp, name) for name in ("eq.png", "cfg.json", "maps"))
+        with open(png, "wb") as f:
+            f.write(encode_png(canvas(rng, 160, 1008)))
+        with open(cfg, "w") as f:
+            json.dump(dict(FLAGSHIP, tokenizer_path=DEFAULT_VOCAB_PATH, seed=0), f)
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        rc = attention_maps.main([png, "--config", cfg, "--out", out, "--max_len",
+                                  str(DECODE_STEPS), "--max_tokens", str(MAPS_PNGS),
+                                  "--device", "cuda"])
+        tool_s = time.perf_counter() - t0
+        # The capture's eager warm-up, the graph replay and the maps replay's.
+        tool_launches = expect_launches(fa, 3, "attention-maps tool")
+        with open(os.path.join(out, "summary.json")) as f:
+            summary = json.load(f)
+        names = sorted(os.listdir(out))
+        with open(os.path.join(out, "token_000.png"), "rb") as f:
+            overlay = decode_png(f.read())
+    n_png = min(len(summary["tokens"]), MAPS_PNGS)
+    ok = (rc == 0 and sorted(summary) == ["grid", "latex", "per_token", "tokens"]
+          and summary["grid"] == [10, 63] and len(summary["per_token"]) == n_png
+          and names == sorted([f"token_{t:03d}.png" for t in range(n_png)] + ["summary.json"])
+          and overlay.shape == (160, 1008))
+    log(f"[variants] attention-maps tool on a (160, 1008) PNG: rc {rc}, "
+        f"{len(summary['tokens'])} tokens decoded, {n_png} overlays read back at "
+        f"{overlay.shape}, grid {summary['grid']}; flash launches {tool_launches} for 3 "
+        f"encodes (the capture's warm-up, the graph replay, the maps replay); {tool_s:.1f} s "
+        f"with the key's capture "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the attention-maps tool failed on the card")
+    return {"replay": {"launches": launches, "encodes": 0, "seconds": replay_s,
+                       "row_err": row_err},
+            "tool": {"launches": tool_launches, "encodes": 3, "seconds": tool_s}}
+
+
+def variants_phase(fa, batch, rng, flagship_encode_err) -> dict:
+    """Phase 13b: the model variants and the attention maps (see the module
+    docstring); ``flagship_encode_err``: phase 7's float32 encoder reading."""
+    out = {name: serve_variant(fa, name, batch, rng, flagship_encode_err)
+           for name in ("patch", "glu false")}
+    out["no cross"] = no_cross_variant(fa, rng)
+    maps = maps_variant(fa, batch, rng)
+    out["maps replay"], out["maps tool"] = maps["replay"], maps["tool"]
+    log("[variants] " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1660,7 +1884,7 @@ def main() -> int:
     profiled = phase("profile", profile_serving, served["engine"], served["batch"])
     graphed = phase("graphs", graphs_phase, fa, served["engine"], served["batch"], profiled)
     del served["engine"]
-    phase("encoder", check_encoder_paths, rng)
+    encode_err = phase("encoder", check_encoder_paths, rng)
     trained = phase("train", train, fa, rng)
     train_row = phase("train timing", time_train_attention, fa, gen)
     resident = phase("device data", device_data_phase, fa, rng)
@@ -1670,6 +1894,9 @@ def main() -> int:
              "http": phase("http", http_phase, fa, rng)}
     evaluated = phase("eval", eval_phase, fa, rng)
     paths.update({f"eval {mode}": r for mode, r in evaluated.items()})
+    variants = phase("variants", variants_phase, fa, served["batch"], rng, encode_err)
+    paths.update({f"variants {name}": {"launches": r["launches"], "encodes": r["encodes"]}
+                  for name, r in variants.items()})
     paths.update({f"graphs {mode}": graphed[mode] for mode in ("greedy", "int8", "beam", "sample")})
     launched = phase("launched shapes", check_launched, fa, gen, launch_log)
     log("[time] seconds per phase " + json.dumps(phase_s))
@@ -1718,6 +1945,13 @@ def main() -> int:
         f"loader's {[r['seconds'] for r in resident['host_epochs']]}, step "
         f"{resident['step_s']['median']} s, peak memory {resident['peak_memory_gb']} GB; "
         f"50k resident rows: " + json.dumps(resident["resident"]) + f" on {card}")
+    log(f"[variants] encode and decode wall s (graph replays, batch {BATCH} x {DECODE_STEPS} "
+        f"tokens): " + json.dumps({name: [variants[name]["encode_s"], variants[name]["decode_s"]]
+                                   for name in ("patch", "glu false")})
+        + f"; no cross train step s {variants['no cross']['step_s']}, peak memory "
+        f"{variants['no cross']['peak_memory_gb']} GB; maps replay "
+        f"{variants['maps replay']['seconds']} s, tool {variants['maps tool']['seconds']} s "
+        f"on {card}")
     log(card_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports nothing of JAX or texocr_tpu, and
 its serving path (greedy, sample, beam, int8 caches, the HTTP server and the
-serving CLI on PNG bytes), its evaluation CLI and its training path on a
+serving CLI on PNG bytes), its evaluation CLI, its attention-maps tool and its
+training path on a
 pickled dataset, chip_smoke.py and tools/flash_kernel_ab.py need neither PIL,
 PyYAML nor regex, none of which a port module imports at module level."""
 
@@ -40,8 +41,9 @@ _CHILD = _BLOCKER + textwrap.dedent(
 
     names = [m.name for m in pkgutil.walk_packages(texocr_tpu_torch.__path__,
                                                    "texocr_tpu_torch.")]
-    # Every module, the compiled decode's included.
+    # Every module, the compiled decode's and the attention-maps tool's included.
     assert "texocr_tpu_torch.models.graphed" in names, names
+    assert "texocr_tpu_torch.tools.attention_maps" in names, names
     for name in names:
         importlib.import_module(name)
     for script in ("chip_smoke.py", "tools/flash_kernel_ab.py"):
@@ -209,6 +211,18 @@ _SERVE_CHILD = _BLOCKER + textwrap.dedent(
          "--decode", "beam", "--beam_size", "2"]))
     assert out["batches"] == 1, out
 
+    from texocr_tpu_torch.serving.image_io import decode_png
+    from texocr_tpu_torch.tools import attention_maps
+
+    maps_dir = os.path.join(tmp, "maps")
+    rc = attention_maps.main([img_path, "--config", cfg_path, "--out", maps_dir,
+                              "--max_len", "4", "--device", "cpu"])
+    assert rc == 0, rc
+    with open(os.path.join(maps_dir, "token_000.png"), "rb") as f:
+        assert decode_png(f.read()).shape == (32, 64)
+    with open(os.path.join(maps_dir, "summary.json")) as f:
+        assert sorted(json.load(f)) == ["grid", "latex", "per_token", "tokens"]
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("served and evaluated")
@@ -218,8 +232,8 @@ _SERVE_CHILD = _BLOCKER + textwrap.dedent(
 
 def test_serving_and_evaluation_run_with_jax_pil_yaml_and_regex_blocked():
     """Every decode mode with int8 caches, an HTTP POST of PNG bytes, the
-    serving CLI on a PNG file and the evaluation CLI with a .json config on
-    the CPU, with the blocked modules unimportable."""
+    serving CLI on a PNG file, the evaluation CLI and the attention-maps tool
+    with a .json config on the CPU, with the blocked modules unimportable."""
     proc = subprocess.run(
         [sys.executable, "-c", _SERVE_CHILD], cwd=REPO, capture_output=True, text=True,
         timeout=300,

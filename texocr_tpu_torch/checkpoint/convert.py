@@ -5,13 +5,15 @@ The port's modules carry the reference PyTorch model's names, so a reference
 ``strict=True`` as it is. ``state_dict_from_jax`` converts a JAX parameter tree
 (``texocr_tpu``'s flax layout, as numpy arrays) into those keys: the inverse of
 ``texocr_tpu.checkpoint.torch_shim.convert_torch_state_dict``. Dense kernels go
-from (in, out) to (out, in), conv kernels from HWIO to OIHW, and the shared
-LayerNorm and the ``block``/``block_list`` duplicates are written at every key
-the reference has.
+from (in, out) to (out, in), conv kernels from HWIO to OIHW, the grey patch
+embed's (p * p * 1, D) kernel, ordered (py, px, c), to the (D, 1, p, p)
+Conv2d weight, and the shared LayerNorm and the ``block``/``block_list``
+duplicates are written at every key the reference has.
 """
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Dict
 
@@ -60,7 +62,10 @@ def _stack(out: dict, prefix: str, p: dict) -> None:
             _mha(out, f"{prefix}.layers.{base + 1}.1", p[f"cross_attns_{layer}"])
         mlp = p[f"mlps_{layer}"]
         mprefix = f"{prefix}.layers.{base + per - 1}.1"
-        fc_in = f"{mprefix}.fc_in.fc"
+        # GeGLU's fc_in is twice as wide as fc_out's input; dense + gelu's
+        # (the reference's nn.Sequential(Linear, GELU)) as wide.
+        glu = np.shape(mlp["fc_in"]["kernel"])[1] == 2 * np.shape(mlp["fc_out"]["kernel"])[0]
+        fc_in = f"{mprefix}.fc_in.fc" if glu else f"{mprefix}.fc_in.0"
         out[f"{fc_in}.weight"] = _linear(mlp["fc_in"]["kernel"])
         out[f"{fc_in}.bias"] = np.asarray(mlp["fc_in"]["bias"])
         out[f"{mprefix}.fc_out.weight"] = _linear(mlp["fc_out"]["kernel"])
@@ -78,13 +83,7 @@ def _bottleneck(out: dict, prefix: str, p: dict) -> None:
         _norm(out, f"{prefix}.downsample.norm", p["proj_norm"])
 
 
-def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
-    """JAX ``{'encoder': ..., 'decoder': ...}`` parameter tree (with or without
-    the top-level ``'params'`` key) -> reference-keyed float32 tensors. Both
-    stacks' MLPs are GeGLU (``fc_in.fc``)."""
-    params = params.get("params", params)
-    enc, dec = params["encoder"], params["decoder"]
-    out: Dict[str, np.ndarray] = {}
+def _hybrid(out: dict, enc: dict) -> None:
     bb = enc["backbone"]
     prefix = "encoder.patch_embed.backbone_net"
     out[f"{prefix}.stem.0.weight"] = _conv(bb["stem_conv"]["kernel"])
@@ -96,6 +95,27 @@ def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     proj = np.asarray(enc["proj"]["kernel"])  # (in, out)
     out["encoder.patch_embed.proj.weight"] = np.ascontiguousarray(proj.T[:, :, None, None])
     out["encoder.patch_embed.proj.bias"] = np.asarray(enc["proj"]["bias"])
+
+
+def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``{'encoder': ..., 'decoder': ...}`` parameter tree (with or without
+    the top-level ``'params'`` key) -> reference-keyed float32 tensors: the
+    hybrid or the grey (one-channel) patch embed, GeGLU (``fc_in.fc``) or
+    dense + gelu (``fc_in.0``) MLPs, decoder stacks with or without
+    cross-attention, each as the tree holds it."""
+    params = params.get("params", params)
+    enc, dec = params["encoder"], params["decoder"]
+    out: Dict[str, np.ndarray] = {}
+    if "patch_embed" in enc:
+        kernel = np.asarray(enc["patch_embed"]["kernel"])  # (p * p, D), (py, px)
+        patch = math.isqrt(kernel.shape[0])
+        if patch * patch != kernel.shape[0]:
+            raise ValueError(f"patch embed kernel {kernel.shape} is not (p * p, D)")
+        weight = kernel.reshape(patch, patch, 1, -1).transpose(3, 2, 0, 1)
+        out["encoder.patch_embed.proj.weight"] = np.ascontiguousarray(weight)
+        out["encoder.patch_embed.proj.bias"] = np.asarray(enc["patch_embed"]["bias"])
+    else:
+        _hybrid(out, enc)
     out["encoder.cls_token"] = np.asarray(enc["cls_token"])
     out["encoder.pos_embed"] = np.asarray(enc["pos_embed"])
     _stack(out, "encoder.attn_layers", enc["attn_layers"])

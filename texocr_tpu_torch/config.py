@@ -18,6 +18,13 @@ augmentation; the host's ``ImageDataset.augment`` has no effect there),
 ``size_round``, ``bucket_cap``, ``pack_bits`` (8 or 4) and ``max_canvas``
 ((h, w): larger buckets are left out).
 
+Model variants, as the JAX package builds them: ``encoder.embed_layer``
+(``hybrid``, the ResNet backbone, or ``patch``, a plain strided patchify),
+the top-level ``glu`` (the decoder's MLP is GeGLU or dense + gelu; the
+encoder's is GeGLU always) and ``decoder.cross_attend`` (false: a decoder
+without cross-attention layers, which trains but has no cached decode, as in
+the JAX package).
+
 Decode keys: ``kv_quant`` (``int8`` quantizes the cross-attention K/V once per
 sequence, per (B, H, dh) scales) and ``self_kv_quant`` (``int8`` keeps the
 self-attention prefix in int8 with per-position scales, merged chunk by
@@ -29,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -86,14 +93,22 @@ FLAGSHIP: Dict[str, Any] = {
 }
 
 
+EMBED_LAYERS = ("hybrid", "patch")
+
+
 def load_config(config_path: str) -> dict:
     """Load a YAML configuration file (or a ``.json`` one, which needs no
     PyYAML) into a plain dict."""
+    config_path = str(config_path)
     with open(config_path, "r") as f:
         if config_path.endswith(".json"):
             return json.load(f)
-        import yaml
-
+        try:
+            import yaml
+        except ImportError:
+            raise ImportError(f"reading the YAML config {config_path} needs PyYAML (the "
+                              "'yaml' package); give a .json config with the same keys "
+                              "instead") from None
         return yaml.safe_load(f)
 
 
@@ -123,6 +138,7 @@ class EncoderConfig:
     resnet_depths: tuple = (2, 4, 6)
     resnet_channels: tuple = (256, 512, 1024)
     stem_channels: int = 64
+    embed_layer: str = "hybrid"  # "hybrid" (ResNet backbone) or "patch"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +148,8 @@ class DecoderConfig:
     embed_dim: int
     num_layers: int
     heads: int
+    cross_attend: bool = True
+    glu: bool = True
     exp_factor: int = 4
     dropout: float = 0.0
 
@@ -159,14 +177,6 @@ class ModelConfig:
                     f"'{key}' not present in config — it is injected at run time "
                     "from the dataset or the tokenizer."
                 )
-        if config.get("encoder", {}).get("embed_layer", "hybrid") != "hybrid":
-            raise NotImplementedError(
-                "only the hybrid ResNet embed is ported (ROADMAP: PatchEmbedding)"
-            )
-        if not config.get("glu", True) or not config["decoder"].get("cross_attend", True):
-            raise NotImplementedError(
-                "only the cross-attending GeGLU decoder is ported (glu and cross_attend true)"
-            )
         enc_args = config["encoder"]
         dec_args = config["decoder"]
         encoder = EncoderConfig(
@@ -179,13 +189,18 @@ class ModelConfig:
             resnet_depths=tuple(enc_args.get("resnet_depths", (2, 4, 6))),
             resnet_channels=tuple(enc_args.get("resnet_channels", (256, 512, 1024))),
             stem_channels=enc_args.get("stem_channels", 64),
+            embed_layer=enc_args.get("embed_layer", "hybrid"),
         )
+        if encoder.embed_layer not in EMBED_LAYERS:
+            raise ValueError(f"unknown embed_layer: {encoder.embed_layer!r}")
         decoder = DecoderConfig(
             vocab_size=config["vocab_size"],
             max_length=config["max_length"],
             embed_dim=dec_args["embed_dim"],
             num_layers=dec_args["num_layers"],
             heads=dec_args["heads"],
+            cross_attend=bool(dec_args.get("cross_attend", True)),
+            glu=bool(config.get("glu", True)),
             exp_factor=dec_args.get("exp_factor", 4),
             dropout=dec_args.get("dropout", 0.0),
         )
@@ -201,6 +216,19 @@ class ModelConfig:
             self_kv_quant=config["self_kv_quant"],
             remat=bool(config["remat"]),
         )
+
+
+def model_config_from_yaml(config_path: str, max_length: Optional[int] = None,
+                          vocab_size: Optional[int] = None) -> ModelConfig:
+    """A config file (YAML, or ``.json`` without PyYAML) -> ``ModelConfig``,
+    with the run-time keys ``max_length`` and ``vocab_size`` injected where
+    given."""
+    config = load_config(config_path)
+    if max_length is not None:
+        config["max_length"] = max_length
+    if vocab_size is not None:
+        config["vocab_size"] = vocab_size
+    return ModelConfig.from_dict(config)
 
 
 @dataclasses.dataclass(frozen=True)

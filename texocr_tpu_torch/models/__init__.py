@@ -1,6 +1,6 @@
-"""Hybrid ResNet + ViT encoder, causal cross-attending decoder; greedy,
-sampled and beam decode."""
+"""ViT encoder (hybrid ResNet or patch embed), causal decoder; greedy, sampled
+and beam decode."""
 
 from texocr_tpu_torch.models.beam import beam_decode  # noqa: F401
 from texocr_tpu_torch.models.generate import generate, greedy_decode, sampled_decode  # noqa: F401
-from texocr_tpu_torch.models.ocr_model import OCRModel  # noqa: F401
+from texocr_tpu_torch.models.ocr_model import OCRModel, create_model  # noqa: F401

@@ -29,6 +29,11 @@ int8 caches copy the JAX package's numbers, not its layout:
   scales per (B, H, dh) over the keys; K's scale folds into q before the dot
   and V's multiplies the output.
 
+A stack without cross-attention (a decoder with ``cross_attend: false``) runs
+its full forward, and its cache set-up (``init_cache``,
+``precompute_cross_kv``) raises ``ValueError``: the JAX package's decode of
+such a stack fails on its missing ``cross_attns``.
+
 Beam search keeps the cross-attention K/V at (B, ...) for all beams of an
 image and reorders the self-attention rows by parent (``reorder_cache``)
 where the JAX package selects rows through an ancestry one-hot.
@@ -58,6 +63,9 @@ KVCache = List[Dict[str, torch.Tensor]]
 DECODE_CHUNK = 32
 
 QUANT_MODES = ("none", "int8")
+
+NO_CROSS_DECODE = ("a decoder with cross_attend: false has no cached decode (greedy, sampled "
+                   "or beam): it trains, and its teacher-forced forward runs")
 
 
 def quantize_int8(x: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -171,13 +179,16 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
-                context_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context_mask: Optional[torch.Tensor] = None, return_maps: bool = False):
         """Full (uncached) attention over (B, N, D): self-attention, or
         cross-attention over ``context``. ``mask``: (B, Nq) bool query-side
         padding mask; ``context_mask``: (B, Nk) bool key-side mask of the
         context. The mask is their q x k outer product; for self-attention the
         key mask is the query mask. A query row with every key masked
-        softmaxes to a uniform average (the math path fills, in bool space)."""
+        softmaxes to a uniform average (the math path fills, in bool space).
+        ``return_maps``: returns (out, maps), the pre- and post-softmax maps
+        of ``math_attention``, which it then always takes (the kernel keeps no
+        maps)."""
         q = _split_heads(self.q(x), self.heads)
         src = x if context is None else context
         k, v = self.project_kv(src)
@@ -191,6 +202,10 @@ class MultiHeadAttention(nn.Module):
                 k_mask = context_mask if context_mask is not None else torch.ones(
                     src.shape[:2], dtype=torch.bool, device=x.device)
             allowed = q_mask[:, None, :, None] & k_mask[:, None, None, :]
+        if return_maps:
+            out, maps = math_attention(q, k, v, scale=self.scale, allowed=allowed,
+                                       causal=self.causal, return_probs=True)
+            return self._finish(out), maps
         out = attention_core(q, k, v, scale=self.scale, allowed=allowed, causal=self.causal,
                              use_flash=self.use_flash)
         return self._finish(out)
@@ -234,11 +249,12 @@ class MultiHeadAttention(nn.Module):
 
 class AttentionStack(nn.Module):
     """(self[, cross], mlp) sub-layers with the shared LayerNorm and the
-    double-norm residual stream."""
+    double-norm residual stream; the MLPs are GeGLU or, without ``glu``,
+    dense + gelu."""
 
     def __init__(self, embed_dim: int, num_layers: int, heads: int = 8,
                  dim_head: int = 64, cross_attend: bool = False, causal: bool = False,
-                 exp_factor: int = 4, dtype: torch.dtype = torch.float32,
+                 glu: bool = True, exp_factor: int = 4, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, remat: bool = False):
         super().__init__()
         self.dtype = dtype
@@ -254,7 +270,7 @@ class AttentionStack(nn.Module):
                                              causal=causal))
             if cross_attend:
                 blocks.append(MultiHeadAttention(embed_dim, heads, dim_head, dtype, use_flash))
-            blocks.append(MLP(embed_dim, exp_factor, dtype))
+            blocks.append(MLP(embed_dim, exp_factor, glu, dtype))
         self.layers = nn.ModuleList([nn.ModuleList([norm, block]) for block in blocks])
 
     @property
@@ -272,32 +288,53 @@ class AttentionStack(nn.Module):
             x = self._norm(x)
         return x
 
-    def _run(self, x: torch.Tensor, apply) -> torch.Tensor:
+    def _run(self, x: torch.Tensor, apply, hiddens: Optional[list] = None) -> torch.Tensor:
+        """Every sub-layer in order; ``hiddens``, when given, collects the
+        input of each self-attention sub-layer."""
+        per = self._per_layer()
         for j in range(len(self.layers)):
+            if hiddens is not None and j % per == 0:
+                hiddens.append(x)
             x = self._sublayer(j, apply, x)
         return x
 
     def forward(self, x: torch.Tensor, enc: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
-                enc_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                enc_mask: Optional[torch.Tensor] = None, return_hidden: bool = False):
         """Full forward: the encoder's self-attention stack, or the
-        teacher-forced decoder's (causal self, cross over ``enc``, MLP).
+        teacher-forced decoder's (causal self, [cross over ``enc``,] MLP).
         ``mask``: (B, N) bool padding mask of ``x``; ``enc_mask``: (B, Nk) of
         ``enc``. With ``remat`` (and gradients on) each sub-layer runs under
         ``torch.utils.checkpoint``: the backward recomputes it instead of
-        keeping its activations, as the JAX package's ``nn.remat`` does."""
+        keeping its activations, as the JAX package's ``nn.remat`` does.
+
+        ``return_hidden``: returns (x, {"hiddens": the input of each
+        self-attention sub-layer, "attn_intermediates": the maps dict of each
+        attention sub-layer, in order}); the attention then takes the math
+        path and ``remat`` is off."""
         if self.cross_attend and enc is None:
             raise ValueError("Must provide enc if cross_attend is True.")
         per = self._per_layer()
+        maps = []
 
         def apply(j, block, h):
             kind = j % per
             if kind == per - 1:
                 return block(h)
             if kind == 1:
-                return block(h, context=enc, mask=mask, context_mask=enc_mask)
-            return block(h, mask=mask)
+                out = block(h, context=enc, mask=mask, context_mask=enc_mask,
+                            return_maps=return_hidden)
+            else:
+                out = block(h, mask=mask, return_maps=return_hidden)
+            if return_hidden:
+                out, m = out
+                maps.append(m)
+            return out
 
+        if return_hidden:
+            hiddens = []
+            x = self._run(x, apply, hiddens)
+            return x, {"hiddens": hiddens, "attn_intermediates": maps}
         if not (self.remat and torch.is_grad_enabled()):
             return self._run(x, apply)
         for j in range(len(self.layers)):
@@ -309,9 +346,17 @@ class AttentionStack(nn.Module):
     def _per_layer(self) -> int:
         return 3 if self.cross_attend else 2
 
+    def check_decodes(self) -> None:
+        """The cached decode needs cross-attention layers: raises
+        ``ValueError`` on a stack without them (the JAX package's decode
+        fails there too, on the missing ``cross_attns``)."""
+        if not self.cross_attend:
+            raise ValueError(NO_CROSS_DECODE)
+
     def init_cache(self, batch: int, max_len: int, device, quant: str = "none") -> KVCache:
         """Zeroed per-layer self-attention K/V, each (B, H, max_len, dh); with
         ``quant="int8"`` also their int8 copies and per-position scales."""
+        self.check_decodes()
         if quant not in QUANT_MODES:
             raise ValueError(f"unknown self kv quant mode: {quant!r}")
         shape = (batch, self.heads, max_len, self.dim_head)
@@ -332,6 +377,7 @@ class AttentionStack(nn.Module):
         """Per-layer cross-attention K/V of the encoder output, each
         (B, H, Nk, dh), computed once per sequence; with ``quant="int8"``
         {"k8", "v8"} and their (B, H, 1, dh) scales over Nk."""
+        self.check_decodes()
         if quant not in QUANT_MODES:
             raise ValueError(f"unknown kv quant mode: {quant!r}")
         per = self._per_layer()
@@ -358,7 +404,7 @@ class AttentionStack(nn.Module):
             layer, kind = divmod(j, per)
             if kind == 0:
                 return block.step(h, cache[layer], t, t0)
-            if kind == 1 and self.cross_attend:
+            if kind == 1:
                 return block.attend_cached_kv(h, cross_kv[layer], key_mask=enc_mask)
             return block(h)
 

@@ -1,10 +1,12 @@
-"""Causal cross-attending transformer decoder.
+"""Causal transformer decoder, cross-attending unless its config says not.
 
 Token embedding + learned absolute positional embedding -> embed dropout ->
-shared-norm stack (causal self + cross + MLP) -> final float32 LayerNorm ->
-logits. Two paths: ``forward``, the teacher-forced full forward over (B, T)
-tokens (training), and ``step``, the cached decode step (serving: greedy,
-sampled and beam).
+shared-norm stack (causal self + [cross +] MLP, GeGLU or dense + gelu by the
+config's ``glu``) -> final float32 LayerNorm -> logits. Two paths:
+``forward``, the teacher-forced full forward over (B, T) tokens (training, and
+with ``return_embeddings`` / ``return_attn`` the hidden states and attention
+maps), and ``step``, the cached decode step (serving: greedy, sampled and
+beam), which needs the cross-attention layers.
 
 Dropout draws its mask from an explicit ``torch.Generator``: the forward is
 deterministic without one. The bits differ from the JAX package's (Philox,
@@ -52,19 +54,26 @@ class TransformerDecoder(nn.Module):
         # Decode steps (one query) never reach the flash kernel, and neither
         # does a teacher-forced forward with a padding mask.
         self.attn_layers = AttentionStack(cfg.embed_dim, cfg.num_layers, cfg.heads,
-                                          cross_attend=True, causal=True,
-                                          exp_factor=cfg.exp_factor, dtype=dtype,
+                                          cross_attend=cfg.cross_attend, causal=True,
+                                          glu=cfg.glu, exp_factor=cfg.exp_factor, dtype=dtype,
                                           use_flash=use_flash, remat=remat)
         self.norm = nn.LayerNorm(cfg.embed_dim, eps=1e-5)
         self.to_logits = TorchDense(cfg.embed_dim, cfg.vocab_size, dtype=dtype)
 
-    def forward(self, tokens: torch.Tensor, enc: torch.Tensor,
+    def forward(self, tokens: torch.Tensor, enc: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None, enc_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, return_embeddings: bool = False,
+                return_attn: bool = False):
         """Teacher-forced logits for (B, T) token ids -> (B, T, V). ``mask``:
-        (B, T) bool, False at PAD; ``enc_mask``: (B, Nk) bool over ``enc``.
+        (B, T) bool, False at PAD; ``enc_mask``: (B, Nk) bool over ``enc``
+        (a decoder without cross-attention ignores both enc arguments).
         ``generator`` (on the model's device) draws the embed dropout mask;
-        without one there is no dropout."""
+        without one there is no dropout.
+
+        ``return_embeddings``: the hidden states after the final norm,
+        (B, T, D), in place of the logits. ``return_attn``: returns (out,
+        maps), the float32 post-softmax map (B, H, T, Nk) of every attention
+        sub-layer in order (self, [cross,] per layer), from the math path."""
         t = tokens.shape[1]
         if t > self.config.max_length:
             raise ValueError(
@@ -75,9 +84,14 @@ class TransformerDecoder(nn.Module):
              + self.pos_embedding.embedding.weight[:t].to(self.dtype)[None])
         if generator is not None:
             x = dropout(x, self.config.dropout, generator)
-        x = self.attn_layers(x, enc=enc, mask=mask, enc_mask=enc_mask)
+        x = self.attn_layers(x, enc=enc, mask=mask, enc_mask=enc_mask, return_hidden=return_attn)
+        if return_attn:
+            x, intermediates = x
         x = self.norm(x.float()).to(self.dtype)
-        return self.to_logits(x)
+        out = x if return_embeddings else self.to_logits(x)
+        if return_attn:
+            return out, [m["post_softmax_attn"] for m in intermediates["attn_intermediates"]]
+        return out
 
     def step(self, token_t: torch.Tensor, t: int, cache: KVCache, cross_kv,
              enc_mask: Optional[torch.Tensor] = None, t0: int = 0) -> torch.Tensor:

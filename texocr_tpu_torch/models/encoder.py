@@ -1,7 +1,9 @@
-"""Hybrid ResNet + ViT vision encoder.
+"""The ViT vision encoder: hybrid ResNet embed or plain patch embed.
 
-ResNetV2 backbone -> 1x1 projection (the reduced patch size is 1 with the /16
-backbone) -> CLS token first -> the top-left (h, w) block of the 2-D learned
+``encoder.embed_layer``: ``hybrid`` is the ResNetV2 backbone -> 1x1 projection
+(the reduced patch size is 1 with the /16 backbone); ``patch`` is a strided
+patchify, kernel = stride = ``patch_size``, of the image cropped to whole
+patches. Then CLS token first -> the top-left (h, w) block of the 2-D learned
 positional table -> shared-norm attention stack -> final float32 LayerNorm.
 """
 
@@ -12,7 +14,7 @@ from torch import nn
 
 from texocr_tpu_torch.config import EncoderConfig
 from texocr_tpu_torch.models.attention import AttentionStack
-from texocr_tpu_torch.models.layers import Conv1x1
+from texocr_tpu_torch.models.layers import PatchConv
 from texocr_tpu_torch.models.resnet import ResNetV2
 
 
@@ -29,10 +31,26 @@ class HybridEmbed(nn.Module):
             )
         self.backbone_net = ResNetV2(cfg.resnet_depths, cfg.resnet_channels,
                                      cfg.stem_channels, cfg.n_channels, dtype, remat)
-        self.proj = Conv1x1(cfg.resnet_channels[-1], cfg.embed_dim, dtype)
+        self.proj = PatchConv(cfg.resnet_channels[-1], cfg.embed_dim, 1, dtype)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         return self.proj(self.backbone_net(images))
+
+
+class PatchEmbedding(nn.Module):
+    """Plain ViT patchify: (B, H, W, C) -> (B, H // p, W // p, D), the image
+    cropped to whole patches first. Holds the reference's ``proj``
+    (Conv2d(C, D, p, stride=p) keys)."""
+
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype):
+        super().__init__()
+        self.patch_size = cfg.patch_size
+        self.proj = PatchConv(cfg.n_channels, cfg.embed_dim, cfg.patch_size, dtype)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        p = self.patch_size
+        h, w = images.shape[1] // p, images.shape[2] // p
+        return self.proj(images[:, : h * p, : w * p])
 
 
 class VisionEncoder(nn.Module):
@@ -45,7 +63,8 @@ class VisionEncoder(nn.Module):
         self.dtype = dtype
         self.max_h = cfg.img_size[0] // cfg.patch_size
         self.max_w = cfg.img_size[1] // cfg.patch_size
-        self.patch_embed = HybridEmbed(cfg, dtype, remat)
+        self.patch_embed = (HybridEmbed(cfg, dtype, remat) if cfg.embed_layer == "hybrid"
+                            else PatchEmbedding(cfg, dtype))
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, self.max_h * self.max_w + 1, cfg.embed_dim))
         # The reference factory passes no ff_kwargs to the encoder stack:
@@ -54,6 +73,15 @@ class VisionEncoder(nn.Module):
                                           exp_factor=4, dtype=dtype,
                                           use_flash=use_flash, remat=remat)
         self.norm = nn.LayerNorm(cfg.embed_dim, eps=1e-5)
+
+    def feature_grid(self, height: int, width: int) -> tuple:
+        """The (h, w) token grid of an (height, width) image: the backbone's
+        SAME-padded /16 (ceil division) or the patchify's whole patches."""
+        cfg = self.config
+        if cfg.embed_layer == "patch":
+            return height // cfg.patch_size, width // cfg.patch_size
+        stride = 4 * 2 ** (len(cfg.resnet_depths) - 1)
+        return -(-height // stride), -(-width // stride)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = self.patch_embed(images.to(self.dtype))

@@ -167,7 +167,10 @@ def sampled_decode(
                             enc_mask=enc_mask, return_logits=return_logits))
 
 
-def check_mode(mode: str, generator: Optional[torch.Generator]) -> None:
+def check_mode(model: OCRModel, mode: str, generator: Optional[torch.Generator]) -> None:
+    """Raises ``ValueError`` for a decode that cannot run: an unknown mode,
+    sampling without a generator, or a decoder without cross-attention."""
+    model.check_decodes()
     if mode not in DECODE_MODES:
         raise ValueError(f"unknown decode mode: {mode!r}")
     if mode == "sample" and generator is None:
@@ -196,7 +199,7 @@ def generate(model: OCRModel, images: torch.Tensor, *, max_len: int, mode: str =
     """Encode + decode in one call: (B, H, W, 1) preprocessed images ->
     (B, max_len) token ids. ``mode``: "greedy", "sample" (at ``temp``, which
     needs ``generator``) or "beam" (``beam_size`` wide, no length penalty)."""
-    check_mode(mode, generator)
+    check_mode(model, mode, generator)
     cross_kv = model.decoder_cross_kv(model.encode(images))
     return _run(decode_state(model, cross_kv, max_len=max_len, mode=mode, generator=generator,
                              temp=temp, beam_size=beam_size))

@@ -63,7 +63,7 @@ class GraphedGenerate:
         device = next(model.parameters()).device
         if device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device; the model is on {device}")
-        check_mode(mode, generator)
+        check_mode(model, mode, generator)
         self.model = model
         self.generator = generator if mode == "sample" else None
         self.decode_args = dict(max_len=max_len, mode=mode, generator=generator, temp=temp,

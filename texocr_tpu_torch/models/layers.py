@@ -1,4 +1,4 @@
-"""Shared building blocks: dense and convolution layers, GroupNorm, GeGLU MLP.
+"""Shared building blocks: dense and convolution layers, GroupNorm, the MLP.
 
 Parameters stay float32 and are cast to the compute dtype where they are used,
 as in the JAX package. Parameter names and shapes are the reference PyTorch
@@ -65,22 +65,6 @@ class WSConv(nn.Module):
         return F.conv2d(x, w, stride=self.stride)
 
 
-class Conv1x1(nn.Module):
-    """Pointwise projection with bias over the last (channel) axis; the weight
-    keeps the reference's Conv2d shape (out, in, 1, 1)."""
-
-    def __init__(self, in_channels: int, out_channels: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 1, 1))
-        self.bias = nn.Parameter(torch.empty(out_channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight[:, :, 0, 0].to(self.dtype)
-        return F.linear(x.to(self.dtype), w, self.bias.to(self.dtype))
-
-
 class GroupNormAct(nn.Module):
     """GroupNorm (32 groups, eps 1e-5) with an optional ReLU.
 
@@ -138,24 +122,53 @@ class GEGLU(nn.Module):
 
 
 class MLP(nn.Module):
-    """Transformer FFN: GeGLU then dense back to embed."""
+    """Transformer FFN: GeGLU (``glu``, keys ``fc_in.fc.*``) or dense + exact
+    erf gelu (held as the reference's ``nn.Sequential(Linear, GELU)``: keys
+    ``fc_in.0.*``), then dense back to embed."""
 
-    def __init__(self, embed_dim: int, exp_factor: int = 4,
+    def __init__(self, embed_dim: int, exp_factor: int = 4, glu: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = embed_dim * exp_factor
-        self.fc_in = GEGLU(embed_dim, hidden, dtype)
+        self.fc_in = (GEGLU(embed_dim, hidden, dtype) if glu
+                      else nn.Sequential(TorchDense(embed_dim, hidden, dtype=dtype), nn.GELU()))
         self.fc_out = TorchDense(hidden, embed_dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc_out(self.fc_in(x))
 
 
+class PatchConv(nn.Module):
+    """The reference's ``Conv2d(c, D, p, stride=p)``: weight (D, c, p, p) and
+    bias (D,), applied to a (B, h * p, w * p, c) image as one product of its
+    (py, px, c)-ordered patches with the flattened weight -> (B, h, w, D), in
+    the compute dtype (the JAX package's reshape and dot). With p = 1 it is
+    the hybrid embed's pointwise projection."""
+
+    def __init__(self, in_channels: int, out_channels: int, patch_size: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.patch_size = patch_size
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, patch_size, patch_size))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, height, width, c = x.shape
+        p = self.patch_size
+        h, w = height // p, width // p
+        patches = (x.reshape(b, h, p, w, p, c).permute(0, 1, 3, 2, 4, 5)
+                   .reshape(b, h, w, p * p * c))
+        kernel = self.weight.permute(0, 2, 3, 1).reshape(self.weight.shape[0], -1)
+        return F.linear(patches.to(self.dtype), kernel.to(self.dtype), self.bias.to(self.dtype))
+
+
 def init_torch_default(module: nn.Module, generator: torch.Generator) -> None:
     """torch's default init for the layers above: U(-b, b), b = 1/sqrt(fan_in),
     for weights and biases alike. GroupNorm keeps ones and zeros."""
     for m in module.modules():
-        if isinstance(m, (TorchDense, WSConv, Conv1x1)):
+        if isinstance(m, (TorchDense, WSConv, PatchConv)):
             fan_in = m.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             with torch.no_grad():

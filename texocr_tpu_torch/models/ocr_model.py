@@ -1,4 +1,5 @@
-"""Top-level OCR model: hybrid ViT encoder + autoregressive decoder.
+"""Top-level OCR model: ViT encoder (hybrid or patch embed) + autoregressive
+decoder.
 
 ``state_dict()`` gives exactly the reference PyTorch model's keys
 (``encoder.*`` and ``decoder.net.*``), so its checkpoints and the committed
@@ -6,11 +7,15 @@ goldens load with ``strict=True``.
 
 ``forward(images, targets)`` is the teacher-forced pass of training: the
 target mask is (targets != PAD), and the decoder reads targets[:, :-1] under
-that mask trimmed to match and returns the logits of targets[:, 1:].
+that mask trimmed to match and returns the logits of targets[:, 1:]. A
+decoder without cross-attention reads no encoder output, so ``forward`` does
+not encode (the JAX package's jitted step drops that dead encode as well);
+its encoder's parameters get no gradient.
 
 The ``decoder_*`` methods are the cached decode's: the self-attention cache
 and the cross-attention K/V follow ``config.self_kv_quant`` and
-``config.kv_quant``.
+``config.kv_quant``; they need the decoder's cross-attention layers
+(``check_decodes``).
 """
 
 from __future__ import annotations
@@ -68,9 +73,14 @@ class OCRModel(nn.Module):
         is taken over. ``generator`` draws the decoder's dropout mask (none
         without it)."""
         trg_mask = self.target_mask(targets)
-        enc = self.encode(images)
+        enc = self.encode(images) if self.config.decoder.cross_attend else None
         logits = self.dec(targets[:, :-1], enc, mask=trg_mask[:, :-1], generator=generator)
         return logits, targets[:, 1:]
+
+    def check_decodes(self) -> None:
+        """Raises ``ValueError`` unless the decoder has the cross-attention
+        layers the cached decode needs: call before encoding for a decode."""
+        self.dec.attn_layers.check_decodes()
 
     def decoder_init_cache(self, batch: int, max_len: int, device):
         return self.dec.attn_layers.init_cache(batch, max_len, device,
@@ -82,3 +92,9 @@ class OCRModel(nn.Module):
     def decoder_step(self, token_t: torch.Tensor, t: int, cache, cross_kv,
                      enc_mask: Optional[torch.Tensor] = None, t0: int = 0) -> torch.Tensor:
         return self.dec.step(token_t, t, cache, cross_kv, enc_mask=enc_mask, t0=t0)
+
+
+def create_model(config: dict, device="cuda", seed: int = 0) -> OCRModel:
+    """The model of a reference-format config dict (``ModelConfig.from_dict``
+    validates it) on ``device``, weights drawn from ``seed``."""
+    return OCRModel(ModelConfig.from_dict(config), device=device, seed=seed)

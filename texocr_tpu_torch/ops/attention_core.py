@@ -58,18 +58,23 @@ def math_attention(
     scale: float,
     allowed: Optional[torch.Tensor] = None,
     causal: bool = False,
-) -> torch.Tensor:
+    return_probs: bool = False,
+):
     """The plain path: float32 logits and softmax, P rounded to q's type, P @ V
-    summed in float32 and returned in q's type."""
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    summed in float32 and returned in q's type. ``return_probs`` also returns
+    the maps {"pre_softmax_attn": the scaled float32 energies, unmasked;
+    "post_softmax_attn": the float32 probabilities}, each (B, H, Nq, Nk)."""
+    raw = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     mask = combined_mask(q.shape[-2], k.shape[-2], allowed=allowed, causal=causal,
                          device=q.device)
-    if mask is not None:
-        logits = logits.masked_fill(~mask, MASK_VALUE)
+    logits = raw if mask is None else raw.masked_fill(~mask, MASK_VALUE)
     # Both products run in float32 on the compute type's values, so the sums are
     # float32 whatever reduced-precision settings the matmul backend has.
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.matmul(probs.float(), v.to(q.dtype).float()).to(q.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs.to(q.dtype).float(), v.to(q.dtype).float()).to(q.dtype)
+    if return_probs:
+        return out, {"pre_softmax_attn": raw, "post_softmax_attn": probs}
+    return out
 
 
 def combined_mask(

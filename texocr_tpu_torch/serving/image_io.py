@@ -8,6 +8,10 @@ numpy, undoing the five row filters, and turns colour into grey as PIL's
 0x8000) >> 16``, a palette through its RGB entries, alpha dropped. Any other
 image goes to PIL, imported only then; without PIL it raises ``ValueError``
 naming the format.
+
+``encode_png`` writes an (H, W) grey or (H, W, 3) RGB uint8 array as an 8-bit
+PNG (every row unfiltered, zlib-compressed), also with the standard library
+only.
 """
 
 from __future__ import annotations
@@ -125,6 +129,29 @@ def decode_png(data: bytes) -> np.ndarray:
             raise ValueError("PNG palette index out of range")
         return _luma(palette)[index]
     return _luma(pixels)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """An (H, W) grey or (H, W, 3) RGB uint8 array -> 8-bit PNG bytes (colour
+    type 0 or 2, rows unfiltered). ``decode_png`` reads a grey PNG back
+    exactly, and an RGB one as its luma."""
+    image = np.ascontiguousarray(image)
+    if image.dtype != np.uint8 or not (image.ndim == 2 or (image.ndim == 3
+                                                          and image.shape[2] == 3)):
+        raise ValueError(f"expected an (H, W) or (H, W, 3) uint8 array, got {image.dtype} "
+                         f"{image.shape}")
+    height, width = image.shape[:2]
+    colour = 0 if image.ndim == 2 else 2
+    rows = np.zeros((height, 1 + image[0].size), np.uint8)  # filter byte 0: None
+    rows[:, 1:] = image.reshape(height, -1)
+    header = struct.pack(">IIBBBBB", width, height, 8, colour, 0, 0, 0)
+    return (PNG_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes())) + _chunk(b"IEND", b""))
 
 
 def image_format(data: bytes) -> str:

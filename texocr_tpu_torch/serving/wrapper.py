@@ -128,7 +128,8 @@ class TexOCR:
     def generate_batch(self, images, max_len: int = 350, temp: float = 0.3,
                        mode: str = "greedy", beam_size: int = 5) -> torch.Tensor:
         """(B, H, W, 1) uint8 canvases (numpy or tensor) -> (B, max_len) int64
-        token ids on the model's device, PAD after EOS."""
+        token ids on the model's device, PAD after EOS. A model whose decoder
+        has no cross-attention raises ``ValueError`` (``check_mode``)."""
         u8 = torch.as_tensor(images)
         if self.device.type == "cuda":
             return self._decode_fn(tuple(u8.shape), max_len, mode, beam_size, temp)(u8)
