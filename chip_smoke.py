@@ -117,15 +117,37 @@ Phases, each fatal on failure:
      take the math path); then the attention-maps tool's main on one
      full-canvas PNG, fatal unless it writes its overlays and summary.json and
      an overlay reads back through decode_png at (160, 1008).
+ 15. data (run before 14, which then holds its launches too): the data path
+     on the card's machine, which has no PIL, PyYAML or regex. (a) The BPE
+     encoder built from csrc/bpe_encoder.cpp by g++ and loaded; the 15
+     golden texts of tests/goldens/tokenizer_encode.json exact through encode
+     and encode_batch, which must make one native call; a retrain on the
+     golden corpus (tokenizer_train.json: 300 tokens, x20) equal to its 41
+     merges; encode_batch's labels/s on ENCODE_LABELS seeded labels, native
+     against pure Python, ids equal. (b) split_data on a seeded master file
+     (DATA_SPLITS rows) with a .json data config; render_data with the latex
+     chain where its binaries are, else mathtext where matplotlib imports,
+     else the phase writes each PNG at the canvas rule with encode_png (the
+     line says which); prune_equations; every PNG centred on a DATA_CANVAS
+     canvas; pickle_data per split, eager and lazy. (c) training.cli on each
+     set of pickles: the flagship at full width, config/config.yml's training
+     keys (batch 128), 1 epoch of 2 train steps and 1 val step. Fatal: a
+     build or golden mismatch, fewer rendered rows than DATA_SPLITS, a
+     non-finite loss, other than 4 flash launches per encode, and a lazy
+     batch (augmentation off) unequal to the eager one. Prints the host
+     times with the host CPU's model and the card's name and power limit:
+     build s, retrain s, labels/s, render s, each pickle's build s and MB,
+     each epoch's wall time.
  14. launched shapes: every flash launch from phase 3 on is recorded (shapes,
      type, strides, alignment, scale, causal, kv_lens) by the phase that made
-     it; each signature that phases 4-13b launched and phase 3 did not check
+     it; each signature that phases 4-13b and 15 launched and phase 3 did not check
      (the batcher's padded batches, the float32 checks at 2 canvases, the
      golden model's) is held against the plain version here, on fresh
      operands of the same strides and alignment, as phase 3 holds its cases.
 Every phase that encodes asserts 4 flash launches per encode on its main
 path; a CUDA graph's replay counts the launches its capture made, and a
-capture counts none. Phases 5, 9-13 and 13b decode through TexOCR, so
+capture counts none; phase 15 trains through training.cli. Phases 5, 9-13
+and 13b decode through TexOCR, so
 through CUDA graphs; the eager checks of phases 4, 9-11 and 13b and
 evaluation's test_model stay eager. Then the seconds each phase took, one
 JSON line of per-kernel numbers, the card's name and power limit, and the last
@@ -134,6 +156,7 @@ line {"ok": true, "device": {...}}.
 
 import json
 import os
+import platform
 import re
 import struct
 import subprocess
@@ -1835,6 +1858,279 @@ def variants_phase(fa, batch, rng, flagship_encode_err) -> dict:
     return out
 
 
+DATA_CANVAS = (160, 1008)  # phase 15 pads every render onto the flagship's canvas
+DATA_SPLITS = {"train": 2 * TRAIN_BATCH, "test": 16, "val": TRAIN_BATCH}  # rows per split
+ENCODE_LABELS = 20_000  # labels timed through encode_batch, native and pure Python
+LABEL_SYMBOLS = ("x", "y", "z", "a", "b", "n", "k", "\\alpha", "\\beta", "\\theta", "\\pi",
+                 "\\lambda")
+
+
+def latex_labels(rng, n) -> list:
+    """``n`` seeded LaTeX labels in the reference's spaced token style: one to
+    three terms (scripts, fractions, roots, integrals, functions) joined by
+    operators, all inside the TeX subset that mathtext typesets."""
+    def term():
+        s, t = (LABEL_SYMBOLS[i] for i in rng.integers(len(LABEL_SYMBOLS), size=2))
+        d = int(rng.integers(0, 100))
+        return (f"{s} ^ {{ {d} }}", f"{s} _ {{ {t} }}", f"\\frac {{ {s} }} {{ {d} }}",
+                f"\\sqrt {{ {s} + {d} }}", f"\\sin {s}", f"{d} {s}",
+                f"\\int _ {{ 0 }} ^ {{ {d} }} {s} d {t}",
+                f"( {s} - {t} ) ^ {{ 2 }}")[int(rng.integers(8))]
+
+    ops = ("+", "-", "=", "\\cdot")
+    labels = []
+    for _ in range(n):
+        parts = [term()]
+        for _ in range(int(rng.integers(0, 3))):
+            parts += [ops[int(rng.integers(len(ops)))], term()]
+        labels.append(" ".join(parts))
+    return labels
+
+
+def host_cpu() -> str:
+    """The host CPU's model and its count of CPUs, from /proc/cpuinfo: its
+    model name, or where that is missing or "unknown" (a virtualised kernel
+    may hide it; an Arm host has none) the machine and the fields that name
+    the part."""
+    with open("/proc/cpuinfo") as f:
+        fields = dict(line.split(":", 1) for line in f if ":" in line)
+    fields = {k.strip(): v.strip() for k, v in fields.items()}
+    name = fields.get("model name", "unknown")
+    if name in ("", "unknown"):
+        keys = ("vendor_id", "cpu family", "model", "cpu MHz", "CPU implementer", "CPU part")
+        name = ", ".join([platform.machine()] + [f"{k} {fields[k]}" for k in keys if k in fields])
+    return f"{name} x {os.cpu_count()}"
+
+
+def tokenizer_check(rng, card, cpu) -> dict:
+    """Phase 15a: the g++-built native encoder, the goldens through encode
+    and encode_batch, a retrain on the golden corpus, and encode_batch's
+    labels/s native against pure Python."""
+    from texocr_tpu_torch.ops import build
+    from texocr_tpu_torch.tokenizer import RegexBPETokenizer, load_default_tokenizer, native
+
+    t0 = time.perf_counter()
+    library, _ = build.build(native.SOURCE)
+    build_s = time.perf_counter() - t0
+    if not native.native_available():
+        raise AssertionError(f"the native BPE encoder did not load: {native.native_error()}")
+    log(f"[data] {native.SOURCE} built by {build.host_compiler_path()} in {build_s:.2f} s "
+        f"({library.name})")
+
+    with open(os.path.join(REPO, "tests", "goldens", "tokenizer_encode.json")) as f:
+        goldens = json.load(f)
+    with open(os.path.join(REPO, "tests", "goldens", "tokenizer_train.json")) as f:
+        golden_train = json.load(f)
+    tok = load_default_tokenizer()
+    texts, want = [c["text"] for c in goldens], [c["ids"] for c in goldens]
+    calls = native.NativeBPEEncoder.calls
+    batch = tok.encode_batch(texts)
+    native_calls = native.NativeBPEEncoder.calls - calls
+    ok = [tok.encode(t) for t in texts] == want and batch == want and native_calls == 1
+    log(f"[data] goldens: {len(texts)} texts through encode and encode_batch ({native_calls} "
+        f"native call) {'exact' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the tokenizer's ids differ from the goldens, or encode_batch "
+                             "did not run natively")
+    corpus = "\n".join(t for t in texts if t) * golden_train["corpus_repeats"]
+    trained = RegexBPETokenizer(golden_train["vocab_size"], dict(golden_train["special_tokens"]))
+    t0 = time.perf_counter()
+    trained.train(corpus)
+    train_s = time.perf_counter() - t0
+    golden_merges = {tuple(k): v for k, v in golden_train["merges"]}
+    ok = trained.bp_merges == golden_merges
+    log(f"[data] retrain on the golden corpus ({golden_train['vocab_size']} tokens, x"
+        f"{golden_train['corpus_repeats']}): {len(trained.bp_merges)} merges in {train_s:.2f} s, "
+        f"{'equal to' if ok else 'FAIL: not'} the golden {len(golden_merges)}")
+    if not ok:
+        raise AssertionError("retrained merges differ from the golden")
+
+    labels = latex_labels(rng, ENCODE_LABELS)
+    calls = native.NativeBPEEncoder.calls
+    t0 = time.perf_counter()
+    fast = tok.encode_batch(labels)
+    native_s = time.perf_counter() - t0
+    if native.NativeBPEEncoder.calls != calls + 1:
+        raise AssertionError("encode_batch did not run natively")
+    t0 = time.perf_counter()
+    slow = [tok.encode(t) for t in labels]
+    python_s = time.perf_counter() - t0
+    if fast != slow:
+        raise AssertionError("encode_batch's native ids differ from encode's")
+    rates = {"native": ENCODE_LABELS / native_s, "python": ENCODE_LABELS / python_s}
+    log(f"[data] encode_batch of {ENCODE_LABELS} seeded labels: native {native_s:.3f} s "
+        f"({rates['native']:.0f} labels/s), pure Python {python_s:.3f} s "
+        f"({rates['python']:.0f} labels/s), ids equal; host {cpu}; {card}")
+    return {"build_s": build_s, "retrain_s": train_s, "encode_s": {"native": native_s,
+                                                                    "python": python_s},
+            "labels_per_s": rates}
+
+
+def renderer_choice() -> str:
+    """latex where its binaries are, else mathtext where matplotlib imports,
+    else "written" (the phase writes the PNGs itself)."""
+    from texocr_tpu_torch.data.factory.render_data import check_binaries
+
+    missing = check_binaries()
+    if missing is None:
+        return "latex"
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return "written"
+    return "mathtext"
+
+
+def build_data(rng, root, cpu) -> dict:
+    """Phase 15b: split, render, prune, pad to DATA_CANVAS, then pickle every
+    split eager and lazy through pickle_data with a .json data config."""
+    from texocr_tpu_torch.data.factory import pickle_data, render_data, split_data
+    from texocr_tpu_torch.serving.image_io import decode_png, encode_png
+    from texocr_tpu_torch.tokenizer import DEFAULT_VOCAB_PATH
+
+    total = sum(DATA_SPLITS.values())
+    master = os.path.join(root, "master.txt")
+    with open(master, "w") as f:
+        f.write("\n".join(latex_labels(rng, total)) + "\n")
+    data_dir = os.path.join(root, "data")
+    config = {"num_equations": total, "seed": 42, "patch_size": 16,
+              "num_processes": os.cpu_count(), "tokenizer_path": DEFAULT_VOCAB_PATH,
+              "splits": {s: DATA_SPLITS[s] / total for s in ("train", "test", "val")},
+              **{f"{s}_dir": os.path.join(data_dir, s) for s in DATA_SPLITS}}
+    cfg_path = os.path.join(root, "data.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    split_data.main([master, data_dir, "-c", cfg_path])
+
+    renderer = renderer_choice()
+    log(f"[data] renderer: {renderer} ("
+        + {"latex": "latex, dvipng and convert found",
+           "mathtext": "no latex chain (" + str(render_data.check_binaries()) + "); matplotlib "
+                       "typesets",
+           "written": "neither the latex chain nor matplotlib: the phase writes each PNG at the "
+                      "canvas rule with encode_png"}[renderer] + ")")
+    t0 = time.perf_counter()
+    for split in DATA_SPLITS:
+        split_dir = config[f"{split}_dir"]
+        if renderer == "written":
+            os.makedirs(os.path.join(split_dir, "images"))
+            with open(os.path.join(split_dir, "ids.txt")) as f:
+                for image_id in f.read().split():
+                    h, w = 16 * int(rng.integers(2, 7)), 64 * int(rng.integers(2, 9))
+                    with open(os.path.join(split_dir, "images", image_id), "wb") as g:
+                        g.write(encode_png(canvas(rng, h, w)))
+        else:
+            render_data.render_images(split_dir, num_processes=config["num_processes"],
+                                      patch_size=config["patch_size"], renderer=renderer)
+        render_data.prune_equations(split_dir)
+    render_s = time.perf_counter() - t0
+
+    # Every render onto the full canvas, centred as convert -gravity center pads.
+    sizes, rows = {}, {}
+    for split in DATA_SPLITS:
+        images = os.path.join(config[f"{split}_dir"], "images")
+        names = sorted(os.listdir(images))
+        rows[split] = len(names)
+        for name in names:
+            with open(os.path.join(images, name), "rb") as f:
+                img = decode_png(f.read())
+            h, w = img.shape
+            sizes[(h, w)] = sizes.get((h, w), 0) + 1
+            if h > DATA_CANVAS[0] or w > DATA_CANVAS[1]:
+                raise AssertionError(f"{name} renders at {(h, w)}, beyond {DATA_CANVAS}")
+            full = np.full(DATA_CANVAS, 255, np.uint8)
+            top, left = (DATA_CANVAS[0] - h) // 2, (DATA_CANVAS[1] - w) // 2
+            full[top: top + h, left: left + w] = img
+            with open(os.path.join(images, name), "wb") as f:
+                f.write(encode_png(full))
+    if rows["train"] < DATA_SPLITS["train"] or rows["val"] < DATA_SPLITS["val"]:
+        raise AssertionError(f"rendered rows {rows}, fewer than {DATA_SPLITS}")
+    log(f"[data] split {total} equations, rendered ({renderer}) in {render_s:.2f} s: rows "
+        f"{rows}, rendered sizes (h, w) from {min(sizes)} to {max(sizes)} over {len(sizes)} "
+        f"sizes, padded to {DATA_CANVAS}; host {cpu}")
+
+    pickles = {}
+    for lazy in (False, True):
+        kind = "lazy" if lazy else "eager"
+        for split in DATA_SPLITS:
+            os.makedirs(os.path.join(root, kind, split))
+            path = os.path.join(root, kind, split, f"{split}set.pkl")
+            t0 = time.perf_counter()
+            pickle_data.main(pickle_data.parse_args(
+                ["-c", cfg_path, "--split", split, "-s", path] + ["--lazy"] * lazy))
+            pickles[kind, split] = {"build_s": time.perf_counter() - t0,
+                                    "mb": os.path.getsize(path) / 1e6}
+    log("[data] pickles (build s, MB): " + json.dumps(
+        {f"{kind} {split}": [round(r["build_s"], 3), round(r["mb"], 3)]
+         for (kind, split), r in pickles.items()}) + f"; host {cpu}")
+    return {"renderer": renderer, "render_s": render_s, "rows": rows, "pickles": pickles,
+            "config": config}
+
+
+def data_phase(fa, rng) -> dict:
+    """Phase 15: the data path on the card's machine, then the flagship
+    trained on what it built (see the module docstring)."""
+    from texocr_tpu_torch.data.dataset import create_dataloader, load_datasets
+    from texocr_tpu_torch.training import cli as train_cli
+
+    card, cpu = card_line(), host_cpu()
+    out = {"tokenizer": tokenizer_check(rng, card, cpu)}
+    with tempfile.TemporaryDirectory() as root:
+        out["factory"] = build_data(rng, root, cpu)
+        config = train_config(os.path.join(root, "checkpoints"))
+        config["n_epochs"] = 1
+        cfg_path = os.path.join(root, "train.json")
+        with open(cfg_path, "w") as f:
+            json.dump(config, f)
+
+        for kind in ("eager", "lazy"):
+            metrics = os.path.join(root, f"{kind}.jsonl")
+            fa.flash_attention.launches = 0
+            t0 = time.perf_counter()
+            train_cli.main(train_cli.parse_args(["-d", os.path.join(root, kind), "--config",
+                                                 cfg_path, "--metrics", metrics,
+                                                 "--device", "cuda"]))
+            run_s = time.perf_counter() - t0
+            launches = fa.flash_attention.launches
+            with open(metrics) as f:
+                records = [json.loads(line) for line in f]
+            epochs = [r for r in records if r["event"] == "train_epoch"]
+            vals = [r for r in records if r["event"] == "val"]
+            steps = sum(r["steps"] for r in epochs)
+            val_steps = DATA_SPLITS["val"] // TRAIN_BATCH
+            losses = [r["loss"] for r in epochs + vals]
+            ok = (len(epochs) == 1 and steps == DATA_SPLITS["train"] // TRAIN_BATCH
+                  and np.isfinite(losses).all() and launches == N_LAYERS * (steps + val_steps))
+            log(f"[data] {kind}: training.cli, 1 epoch at batch {TRAIN_BATCH} on {DATA_CANVAS}: "
+                f"{steps} train and {val_steps} val steps, losses {losses}, flash launches "
+                f"{launches}, epoch wall {epochs[0]['seconds']:.3f} s, run {run_s:.1f} s; "
+                f"pickle {out['factory']['pickles'][kind, 'train']['mb']:.3f} MB built in "
+                f"{out['factory']['pickles'][kind, 'train']['build_s']:.3f} s; host {cpu}; "
+                f"{card} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{kind} training: expected {N_LAYERS} flash launches per "
+                                     "encode, finite losses and one epoch")
+            out[kind] = {"launches": launches, "encodes": int(steps) + val_steps,
+                         "epoch_s": epochs[0]["seconds"], "run_s": run_s, "losses": losses}
+
+        # The lazy pickle's batches are the eager one's (augmentation off).
+        eager, lazy = load_datasets(os.path.join(root, "eager")), load_datasets(
+            os.path.join(root, "lazy"))
+        n_batches = 0
+        for e_set, l_set in zip(eager, lazy):
+            if not l_set.lazy or e_set.lazy:
+                raise AssertionError("the lazy pickle loaded eager, or the eager one lazy")
+            for (ei, el), (li, ll) in zip(create_dataloader(e_set, config),
+                                          create_dataloader(l_set, config), strict=True):
+                if not (np.array_equal(ei, li) and np.array_equal(el, ll)):
+                    raise AssertionError("a lazy batch differs from the eager one")
+                n_batches += 1
+        log(f"[data] lazy and eager batches equal, augmentation off ({n_batches} batches)")
+    out["factory"].pop("config")
+    out["factory"]["pickles"] = {f"{k} {s}": r for (k, s), r in out["factory"]["pickles"].items()}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1898,6 +2194,9 @@ def main() -> int:
     paths.update({f"variants {name}": {"launches": r["launches"], "encodes": r["encodes"]}
                   for name, r in variants.items()})
     paths.update({f"graphs {mode}": graphed[mode] for mode in ("greedy", "int8", "beam", "sample")})
+    data = phase("data", data_phase, fa, rng)
+    paths.update({f"data {kind}": {"launches": data[kind]["launches"],
+                                   "encodes": data[kind]["encodes"]} for kind in ("eager", "lazy")})
     launched = phase("launched shapes", check_launched, fa, gen, launch_log)
     log("[time] seconds per phase " + json.dumps(phase_s))
 
@@ -1951,6 +2250,10 @@ def main() -> int:
         + f"; no cross train step s {variants['no cross']['step_s']}, peak memory "
         f"{variants['no cross']['peak_memory_gb']} GB; maps replay "
         f"{variants['maps replay']['seconds']} s, tool {variants['maps tool']['seconds']} s "
+        f"on {card}")
+    log(f"[data] native encode_batch {data['tokenizer']['labels_per_s']['native']:.0f} labels/s, "
+        f"pure Python {data['tokenizer']['labels_per_s']['python']:.0f} on {host_cpu()}; "
+        f"epoch wall s eager {data['eager']['epoch_s']:.3f}, lazy {data['lazy']['epoch_s']:.3f} "
         f"on {card}")
     log(card_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

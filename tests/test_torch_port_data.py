@@ -117,8 +117,14 @@ def test_payload_reader_admits_only_numpy_and_plain_objects(tmp_path):
 
 
 def test_directory_construction_needs_bpe_encode(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ImageDataset(str(tmp_path), DEFAULT_VOCAB_PATH, dataset_size=4)
+    """A directory builds through the port's BPE encode: the labels' ids are
+    the JAX tokenizer's."""
+    root = synthetic_dataset_dir(tmp_path, None)
+    ds = ImageDataset(str(root), DEFAULT_VOCAB_PATH, dataset_size=4)
+    jax_tok = load_default_tokenizer()
+    assert len(ds) == 4
+    assert ds.token_ids == [jax_tok.encode(label) for label in ds.labels]
+    assert ds.max_seq_len == max(map(len, ds.token_ids)) + 2
 
 
 @pytest.mark.parametrize("hw", [(32, 64), (31, 77), (160, 1008)])

@@ -6,11 +6,17 @@ collator draw from the global ``random`` module with the JAX package's seeds
 and calls (reseeded on every pass, never restored), so the batch order and the
 arrays are the same.
 
-``ImageDataset.load`` reads the JAX package's pickle payload (a plain dict of
-numpy arrays and Python lists, eager or lazy) through an unpickler that
-admits nothing else, and ``save`` writes the same payload. Building a dataset
-from a directory of rendered images needs BPE encoding, which is not ported
-yet: that constructor raises.
+``ImageDataset(root_dir, tokenizer_path, dataset_size)`` builds a dataset
+from a directory of rendered images, as the data factory writes it
+(``labels.txt``, ``ids.txt``, ``images/``; the pruned files where they
+exist), with the JAX package's contents: the labels and ids cut at
+``dataset_size``, every label encoded once by ``encode_batch``, the pixels
+through ``serving.image_io`` (no PIL for a PNG) equal to PIL's
+``convert("L")``. A lazy dataset (``lazy=True``) reads only each PNG's
+header (its images must be PNGs) and decodes the pixels at each access. ``ImageDataset.load`` reads
+the JAX package's pickle payload (a plain dict of numpy arrays and Python
+lists, eager or lazy) through an unpickler that admits nothing else, and
+``save`` writes the same payload.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from texocr_tpu_torch.data.transforms import img_transform
+from texocr_tpu_torch.serving.image_io import decode_image, png_size
 from texocr_tpu_torch.tokenizer import DEFAULT_VOCAB_PATH, RegexBPETokenizer
 from texocr_tpu_torch.utils import pad_to_multiple
 
@@ -53,14 +60,49 @@ class ImageDataset:
     def __init__(self, root_dir: Optional[str] = None, tokenizer_path: Optional[str] = None,
                  dataset_size: Optional[int] = None, augment: bool = False,
                  lazy: bool = False):
+        """``lazy=True`` keeps only the file names and sizes and decodes each
+        PNG at each access: the memory plan at 100k full canvases, where the
+        eager uint8 arrays take about 16 GB and the pickle as much. Without
+        all three of ``root_dir``, ``tokenizer_path`` and ``dataset_size``,
+        a bare instance (for ``load`` and ``from_arrays``)."""
         self.augment = augment
         self.lazy = lazy
-        if root_dir or tokenizer_path or dataset_size:
-            raise NotImplementedError(
-                "building a dataset from a directory needs BPE encoding, which is not "
-                "ported yet (ROADMAP Queue 1 item 15); load a pickle written by "
-                "ImageDataset.save (either package's) instead"
-            )
+        if not (root_dir and tokenizer_path and dataset_size):
+            return
+
+        self.tokenizer_path = tokenizer_path
+        self.tokenizer = RegexBPETokenizer().load(tokenizer_path)
+        root = Path(root_dir)
+        self.root_dir = root
+        if (root / "labels_pruned.txt").exists():  # render failures dropped
+            label_path, id_path = root / "labels_pruned.txt", root / "ids_pruned.txt"
+        else:
+            label_path, id_path = root / "labels.txt", root / "ids.txt"
+        self.labels = label_path.read_text().splitlines()[:dataset_size]
+        self.image_ids = id_path.read_text().splitlines()[:dataset_size]
+        self.dataset_size = len(self.labels)
+
+        self.images: List[Optional[np.ndarray]] = []
+        self.sizes: Dict[Tuple[int, int], List[int]] = defaultdict(list)
+        heights, widths = [], []
+        for i, image_id in enumerate(self.image_ids):
+            path = root / "images" / image_id
+            if lazy:  # the PNG header's size; the pixels wait for an access
+                with open(path, "rb") as f:
+                    w, h = png_size(f.read(24))
+                self.images.append(None)
+            else:
+                arr = decode_image(path.read_bytes())
+                h, w = arr.shape
+                self.images.append(arr)
+            heights.append(h)
+            widths.append(w)
+            self.sizes[(w, h)].append(i)
+
+        self.token_ids = self.tokenizer.encode_batch(self.labels)  # once, without BOS/EOS
+        self.max_seq_len = max((len(t) for t in self.token_ids), default=0) + 2
+        self.max_height = max(heights, default=0)
+        self.max_width = max(widths, default=0)
 
     @classmethod
     def from_arrays(cls, images: Sequence[np.ndarray], token_ids: Sequence[List[int]],
@@ -93,10 +135,7 @@ class ImageDataset:
     def _load_array(self, idx: int) -> np.ndarray:
         if self.images[idx] is not None:
             return self.images[idx]
-        from PIL import Image  # lazy payloads only: the pixels are PNG files
-
-        with Image.open(Path(self.root_dir) / "images" / self.image_ids[idx]) as im:
-            return np.asarray(im.convert("L"), dtype=np.uint8)
+        return decode_image((Path(self.root_dir) / "images" / self.image_ids[idx]).read_bytes())
 
     def __getitem__(self, idx: int) -> Tuple[np.ndarray, List[int]]:
         """(float32 (H, W, 1) preprocessed image, token id list)."""

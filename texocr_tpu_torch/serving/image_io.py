@@ -1,13 +1,17 @@
 """Image bytes -> a 2-D uint8 grey array, without PIL for PNG.
 
-The serving path takes rendered-equation PNGs. ``decode_image`` reads 8-bit,
-non-interlaced PNGs of colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey
-and alpha) and 6 (RGBA) with the standard library (``zlib``, ``struct``) and
-numpy, undoing the five row filters, and turns colour into grey as PIL's
-``convert("L")`` does: integer luma ``(R * 19595 + G * 38470 + B * 7471 +
+Serving and the datasets take rendered-equation PNGs. ``decode_image`` reads
+non-interlaced PNGs of every bit depth the format allows (grey at 1, 2, 4, 8
+and 16 bits, palette at 1, 2, 4 and 8, RGB, grey and alpha, and RGBA at 8
+and 16) with the standard library (``zlib``, ``struct``) and numpy, undoing
+the five row filters, and turns them into grey as PIL's ``convert("L")``
+does: grey below 8 bits scaled to 0..255 (``v * 255 // (2**depth - 1)``),
+16-bit grey clipped at 255, 16-bit colour and alpha samples cut to their
+high byte, colour to integer luma ``(R * 19595 + G * 38470 + B * 7471 +
 0x8000) >> 16``, a palette through its RGB entries, alpha dropped. Any other
-image goes to PIL, imported only then; without PIL it raises ``ValueError``
-naming the format.
+image (an interlaced PNG, another format) goes to PIL, imported only then;
+without PIL it raises ``ValueError`` naming the format. ``png_size`` reads a
+PNG's width and height from its header alone.
 
 ``encode_png`` writes an (H, W) grey or (H, W, 3) RGB uint8 array as an 8-bit
 PNG (every row unfiltered, zlib-compressed), also with the standard library
@@ -23,7 +27,8 @@ import zlib
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # per colour type, at 8 bits
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # samples per pixel, per colour type
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 _MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
           (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"RIFF", "WebP"))
 
@@ -84,10 +89,33 @@ def _unfilter_sequential(kind: int, f: list, up: list, bpp: int) -> np.ndarray:
     return np.frombuffer(bytes(cur), np.uint8)
 
 
+def png_size(data: bytes) -> tuple:
+    """(width, height) from a PNG's IHDR chunk: its first 24 bytes are
+    enough. Raises ``ValueError`` if they are not a PNG's."""
+    if len(data) < 24 or not data.startswith(PNG_SIGNATURE) or data[12:16] != b"IHDR":
+        raise ValueError("not a PNG file")
+    return struct.unpack(">II", data[16:24])
+
+
+def _samples(rows: np.ndarray, width: int, depth: int, channels: int) -> np.ndarray:
+    """Unfiltered rows -> (H, W, channels) samples: unpacked from the bits
+    of a byte below 8 bits, big-endian uint16 at 16."""
+    height = rows.shape[0]
+    if depth == 8:
+        return rows.reshape(height, width, channels)
+    if depth == 16:
+        pairs = rows.reshape(height, width, channels, 2).astype(np.uint16)
+        return (pairs[..., 0] << 8) | pairs[..., 1]
+    bits = np.unpackbits(rows, axis=1).reshape(height, -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits @ weights)[:, :width, None]
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """An 8-bit, non-interlaced PNG -> (H, W) uint8 grey. Raises
-    ``UnsupportedPNG`` for other bit depths and interlaced images, and
-    ``ValueError`` for a malformed file."""
+    """A non-interlaced PNG -> (H, W) uint8 grey, as PIL's ``convert("L")``
+    gives it. Raises ``UnsupportedPNG`` for an interlaced image or a bit
+    depth the colour type does not allow, and ``ValueError`` for a
+    malformed file."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG file")
     pos, header, palette, idat = len(PNG_SIGNATURE), None, None, []
@@ -108,7 +136,7 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without an IHDR chunk")
     width, height, depth, colour, _, _, interlace = header
-    if depth != 8 or interlace != 0 or colour not in _CHANNELS:
+    if interlace != 0 or depth not in _DEPTHS.get(colour, ()):
         raise UnsupportedPNG(f"PNG of bit depth {depth}, colour type {colour}, "
                              f"interlace {interlace}")
     channels = _CHANNELS[colour]
@@ -116,10 +144,14 @@ def decode_png(data: bytes) -> np.ndarray:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"corrupt PNG image data: {e}") from None
-    pixels = _unfilter(raw, height, width * channels, channels).reshape(height, width, channels)
-    if colour == 0:
-        return pixels[..., 0]
-    if colour == 4:
+    bits = depth * channels  # per pixel; the filters step by whole bytes, at least one
+    rows = _unfilter(raw, height, (width * bits + 7) // 8, max(1, bits // 8))
+    pixels = _samples(rows, width, depth, channels)
+    if depth == 16:  # as PIL: grey clipped at 255, any other sample cut to its high byte
+        pixels = (np.minimum(pixels, 255) if colour == 0 else pixels >> 8).astype(np.uint8)
+    elif depth < 8 and colour == 0:
+        pixels = pixels * np.uint8(255 // ((1 << depth) - 1))
+    if colour in (0, 4):
         return np.ascontiguousarray(pixels[..., 0])
     if colour == 3:
         if palette is None:
