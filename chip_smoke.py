@@ -14,7 +14,9 @@ Phases, each fatal on failure:
      test shapes (masks, ragged tiles, head dims, row alignments) and at the
      serving path's shapes; then timings of the kernel, the plain version and one PyTorch
      library call as a yardstick, at the four shapes of the serving path,
-     with L2-warm and L2-cold inputs.
+     with L2-warm and L2-cold inputs; and at phase 16's per-rank training
+     shapes (RANK_SHAPES: (64, 8, 631, 64) and (32, 4, 631, 64) in bf16),
+     checked and timed beside the bound and the library call.
   4. golden: the committed reference goldens through the port on the card in
      float32 (kernel path): exact greedy tokens, encoder output within 1e-4;
      the float32 kernel's launch count is read from this phase.
@@ -138,6 +140,25 @@ Phases, each fatal on failure:
      times with the host CPU's model and the card's name and power limit:
      build s, retrain s, labels/s, render s, each pickle's build s and MB,
      each epoch's wall time.
+ 16. parallel (run before 14): the data x model process mesh on the card,
+     the bf16 flagship at full width unless said, fatal on every check.
+     (a) A process group of one rank over NCCL: train_model with phase 8's
+     keys, data and seed under mesh {data: -1, model: 1} (the mesh, the
+     global loss's count and the gradients' all-reduce run on the card):
+     epoch losses within WORLD1_RTOL of phase 8's, 4 flash launches per
+     step; prints the synchronised full-canvas step beside phase 8's and the
+     gradient all-reduce's bytes and time, read from a trace written by
+     telemetry.profile_trace. (b) Two ranks sharing cuda:0 over gloo (NCCL
+     refuses two ranks on one GPU), spawned by parallel.dryrun.spawn:
+     PARALLEL_STEPS Adam steps under {data: 2} at global batch 128 and under
+     {model: 2} at 32, losses within PARALLEL_BF16_RTOL of one process's on
+     the same global batches, 4 flash launches per step; each rank holds the
+     kernel at its shapes against its plain version; float32 greedy decode of
+     2 full canvases x 32 steps under {model: 2} equal to one process's
+     tokens; prints per rank the step times, peak memory and a profiled
+     step's share in collectives. (c) dryrun_multichip(2) on cuda:0. These
+     are correctness phases: gloo stages CUDA tensors through the host and
+     the ranks time-share one card, so no time here is a parallel speed.
  14. launched shapes: every flash launch from phase 3 on is recorded (shapes,
      type, strides, alignment, scale, causal, kv_lens) by the phase that made
      it; each signature that phases 4-13b and 15 launched and phase 3 did not check
@@ -158,6 +179,7 @@ import json
 import os
 import platform
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -223,6 +245,17 @@ EVAL_MAX_LEN = 276  # evaluation's decode budget (test_model's default)
 VARIANT_TRAIN_STEPS = 3  # the no-cross variant's train steps
 MAPS_TOKENS = DECODE_STEPS + 1  # BOS and a full decode, as the attention-maps tool replays it
 MAPS_PNGS = 8  # the attention-maps tool's --max_tokens on the card
+PARALLEL_STEPS = 2  # train steps per mesh of phase 16b
+PARALLEL_BATCHES = {"data": 128, "model": 32}  # phase 16b's global batch per mesh
+PARALLEL_DECODE = (2, 32)  # phase 16b's float32 decode: full canvases, steps
+PARALLEL_TIMED = 4  # phase 16a's synchronised full-canvas steps
+WORLD1_RTOL = 5e-4  # phase 16a's epoch losses against phase 8's (bf16; atomics reorder sums)
+PARALLEL_BF16_RTOL = 1e-3  # phase 16b's bf16 losses against the single process's
+# Phase 16's per-rank encoder attention, (B, H, N, dtype): {data: 2} at batch
+# 128, {model: 2} at batch 32, its float32 decode's encode of 2 canvases,
+# and the dry run's 32 x 64 images on 2 ranks.
+RANK_SHAPES = ((64, 8, 631, torch.bfloat16), (32, 4, 631, torch.bfloat16),
+               (2, 4, 631, torch.float32), (2, 8, 9, torch.float32))
 
 def log(msg):
     print(msg, flush=True)
@@ -343,6 +376,9 @@ def check_flash_kernel(fa, gen) -> dict:
         # the training path's batches: full canvases and the (64, 512) bucket
         (128, 8, 631, 631, 64, False, None, bf16, "split"),
         (128, 8, 129, 129, 64, False, None, bf16, "split"),
+        # phase 16's per-rank shapes: {data: 2} at batch 128, {model: 2} at
+        # batch 32 and its float32 decode of 2 canvases, the dry run's encode
+        *((b, h, n, n, 64, False, None, dtype, "split") for b, h, n, dtype in RANK_SHAPES),
     ]
     errors = {}
     for b, h, nq, nk, dh, causal, lens, dtype, layout in cases:
@@ -1040,8 +1076,42 @@ def time_train_attention(fa, gen) -> dict:
     return row
 
 
-def train(fa, rng) -> dict:
-    """Phase 8: the training path on the card (see the module docstring)."""
+def time_rank_shapes(fa, gen) -> list:
+    """Phase 3 at phase 16's per-rank training shapes (bfloat16, split-head,
+    L2-warm, CUDA-graph replays): the kernel against its plain version, and
+    its time beside the bound, the plain version and
+    scaled_dot_product_attention."""
+    rows = []
+    for b, h, n, dtype in RANK_SHAPES:
+        if dtype != torch.bfloat16:
+            continue
+        q, k, v = (split_heads(gen, b, h, n, 64, dtype) for _ in range(3))
+        scale = 64 ** -0.5
+        err, tol, note = hold_bf16(fa, fa.flash_attention(q, k, v, scale=scale),
+                                   fa.flash_attention_plain(q, k, v, scale=scale), q, k, v,
+                                   scale)
+        log(f"[kernels] flash_attention bf16 {(b, h, n, 64)} split-head (a phase 16 rank's "
+            f"shape), kernel vs plain: {note} {'ok' if err <= tol else 'FAIL'}")
+        if not err <= tol:
+            raise AssertionError("flash attention kernel disagrees with its plain version")
+        bound, bound_by = attention_bound_ms(q, k)
+        row = {"shape": [b, h, n, 64], "max_abs_err": err, "bound_ms": bound,
+               "bound_by": bound_by,
+               "ms": time_ms(lambda: fa.flash_attention(q, k, v, scale=scale)),
+               "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, scale=scale),
+                                   iters=5),
+               "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q, k, v, scale=scale))}
+        log(f"[kernels] flash_attention bf16 {(b, h, n, 64)} split-head timing: "
+            + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def train(fa, rng, data_dir=None) -> dict:
+    """Phase 8: the training path on the card (see the module docstring).
+    ``data_dir``: where to write the dataset and leave it (phase 16 trains
+    on it again); by default a temporary directory."""
     from texocr_tpu_torch.checkpoint.io import latest_checkpoint, load_checkpoint
     from texocr_tpu_torch.data.dataset import create_dataloader, load_datasets, prefetch
     from texocr_tpu_torch.models import OCRModel
@@ -1058,8 +1128,9 @@ def train(fa, rng) -> dict:
     grad_errors = check_train_grads(fa, rng)
 
     with tempfile.TemporaryDirectory() as tmp:
-        write_train_data(tmp, rng)
-        train_set, val_set, _ = load_datasets(tmp)
+        data_dir = data_dir or tmp
+        write_train_data(data_dir, rng)
+        train_set, val_set, _ = load_datasets(data_dir)
         train_set.augment = True  # as the training CLI sets it
         config = train_config(os.path.join(tmp, "checkpoints"))
         metrics = os.path.join(tmp, "metrics.jsonl")
@@ -1155,7 +1226,7 @@ def train(fa, rng) -> dict:
             "profile": {**prof,
                         "device_busy_share": prof["device_s"] / prof["profiled_wall_s"],
                         "math_backward_share": backward_s / prof["device_s"]},
-            "resume_losses": [resumed, kept],
+            "resume_losses": [resumed, kept], "data_dir": data_dir,
         }
     log(f"[train] step (synchronised, over {TIMED_EPOCHS} epochs) {step_s} s, "
         f"{TRAIN_BATCH / median_full:.1f} images/s at (160, 1008); host loader alone "
@@ -1163,7 +1234,7 @@ def train(fa, rng) -> dict:
         f"{prof['device_s'] * 1e3:.1f} ms on the device in {prof['profiled_wall_s'] * 1e3:.1f} "
         f"ms wall, {100 * result['profile']['device_busy_share']:.1f}% busy, attention's "
         f"math-path backward {100 * result['profile']['math_backward_share']:.1f}%")
-    log("[train] " + json.dumps(result))
+    log("[train] " + json.dumps({k: v for k, v in result.items() if k != "data_dir"}))
     return result
 
 
@@ -2131,6 +2202,283 @@ def data_phase(fa, rng) -> dict:
     return out
 
 
+def trace_times(path) -> dict:
+    """From a Chrome trace that ``telemetry.profile_trace`` wrote: the host
+    time (ms) of each collective span of ``parallel/layers.py``, summed per
+    name, and the device time of the NCCL kernels (gloo runs its collectives
+    on the host, staging CUDA tensors through host memory)."""
+    from texocr_tpu_torch.parallel import layers
+
+    out = dict.fromkeys((layers.GRAD_SPAN, layers.MODEL_SPAN, layers.SUM_SPAN, layers.ROWS_SPAN,
+                         "nccl_kernels"), 0.0)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        name, ms = e.get("name", ""), e.get("dur", 0) / 1e3
+        if e.get("cat") == "user_annotation" and name in out:
+            out[name] += ms
+        elif e.get("cat") == "kernel" and "nccl" in name.lower():
+            out["nccl_kernels"] += ms
+    return {f"{k}_ms": v for k, v in out.items()}
+
+
+def profiled_step(fn, logdir, name) -> dict:
+    """One synchronised call of ``fn`` under ``telemetry.profile_trace``: its
+    wall time, the collectives' times from the trace and their share of the
+    wall time."""
+    from texocr_tpu_torch.telemetry import profile_trace
+
+    with profile_trace(logdir, name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = trace_times(os.path.join(logdir, f"{name}.json"))
+    host_ms = sum(v for k, v in spans.items() if k != "nccl_kernels_ms")
+    return {"profiled_wall_ms": wall_ms, **spans,
+            "collective_share": (host_ms + spans["nccl_kernels_ms"]) / wall_ms}
+
+
+def world1_phase(fa, trained) -> dict:
+    """Phase 16a: phase 8's train_model, data and seed on a process group of
+    one rank over NCCL (the whole distributed path: the mesh, the global
+    loss's count and the gradients' all-reduce on the card). Fatal: epoch
+    losses beyond WORLD1_RTOL of phase 8's, other than 4 flash launches per
+    step. Prints the synchronised full-canvas step beside phase 8's and the
+    gradient all-reduce's bytes and time."""
+    import torch.distributed as dist
+
+    from texocr_tpu_torch.data.dataset import create_dataloader, load_datasets
+    from texocr_tpu_torch.training.loop import train_model
+    from texocr_tpu_torch.training.train_step import make_train_step, put_batch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1,
+                                rank=0)
+        try:
+            train_set, val_set, _ = load_datasets(trained["data_dir"])
+            train_set.augment = True  # as phase 8
+            config = train_config(os.path.join(tmp, "checkpoints"))
+            fa.flash_attention.launches = 0
+            t0 = time.perf_counter()
+            model, state, history = train_model(train_set, val_set, config, verbose=False,
+                                                device="cuda")
+            run_s = time.perf_counter() - t0
+            launches = fa.flash_attention.launches
+            eval_steps = TRAIN_EPOCHS * len(create_dataloader(val_set, config))
+            if launches != 4 * (state.step + eval_steps):
+                raise AssertionError(f"world of 1: {launches} flash launches for {state.step} "
+                                     f"train and {eval_steps} eval steps")
+            want = trained["epoch_losses"]
+            err = float(np.max(np.abs(np.array(history) - want) / np.abs(want)))
+            log(f"[parallel] (a) NCCL world of 1, mesh {{data: 1, model: 1}}: train_model "
+                f"epoch losses {history} against phase 8's {want}: max relative difference "
+                f"{err:.3e} (tol {WORLD1_RTOL:g}) {'ok' if err <= WORLD1_RTOL else 'FAIL'}; "
+                f"flash launches {launches}; {run_s:.1f} s")
+            if not err <= WORLD1_RTOL:
+                raise AssertionError("the world-of-1 run's losses differ from phase 8's")
+
+            train_step = make_train_step(mask_pad=True)
+            full = [b for b in create_dataloader(train_set, config, seed_offset=TRAIN_EPOCHS)
+                    if b[0].shape[1:3] == TRAIN_BUCKETS[0][0]]
+            times = []
+            for i in range(PARALLEL_TIMED):
+                images, labels = put_batch(*full[i % len(full)], "cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_step(state, images, labels)["loss"].item()
+                times.append(time.perf_counter() - t0)
+            profile = profiled_step(lambda: train_step(state, images, labels), tmp, "world1")
+            grad_bytes = sum(p.grad.numel() * p.grad.element_size()
+                             for p in model.parameters() if p.grad is not None)
+        finally:
+            dist.destroy_process_group()
+    phase8 = trained["step_s"]["x".join(map(str, TRAIN_BUCKETS[0][0]))]["median"]
+    result = {"epoch_losses": history, "max_rel_diff": err, "launches": launches,
+              "step_s_median": float(np.median(times)), "phase8_step_s_median": phase8,
+              "grad_bytes": grad_bytes, **profile}
+    log(f"[parallel] (a) full-canvas step {result['step_s_median']:.4f} s (median of "
+        f"{PARALLEL_TIMED}, synchronised) against phase 8's {phase8:.4f} s; gradient "
+        f"all-reduce {grad_bytes / 1e6:.1f} MB a step: {profile['grad_all_reduce_ms']:.3f} ms "
+        f"on the host, {profile['nccl_kernels_ms']:.3f} ms of NCCL kernels; collectives "
+        f"{100 * profile['collective_share']:.2f}% of a profiled step "
+        f"({profile['profiled_wall_ms']:.1f} ms)")
+    del model, state
+    torch.cuda.empty_cache()
+    return result
+
+
+def parallel_batch(seed, n):
+    """Global batch ``seed`` of ``n`` full canvases, as the host collator
+    makes it: the same arrays in every process that asks."""
+    from texocr_tpu_torch.data.dataset import BatchCollator
+
+    rng = np.random.default_rng(1600 + seed)
+    batch = [(1.0 - canvas(rng, 160, 1008)[..., None].astype(np.float32) / 255.0, ids)
+             for ids in train_tokens(rng, n)]
+    return BatchCollator(999, 998, 997, seq_pad_multiple=32)(batch)
+
+
+def flagship_model(dtype, mesh=None):
+    from texocr_tpu_torch.config import FLAGSHIP, ModelConfig
+    from texocr_tpu_torch.models import OCRModel
+
+    return OCRModel(ModelConfig.from_dict(dict(FLAGSHIP, dtype=dtype)), device="cuda", seed=0,
+                    mesh=mesh)
+
+
+def parallel_steps(axis, sharded, logdir=None) -> dict:
+    """PARALLEL_STEPS Adam steps of the bf16 flagship on the global batches
+    of PARALLEL_BATCHES[axis] rows, on the mesh ``{axis: 2}`` if
+    ``sharded`` (else in one process): each step's global loss, this rank's
+    synchronised step times and flash launches, its peak memory and, with
+    ``logdir``, a further profiled step."""
+    from texocr_tpu_torch.ops import flash_attention as fa
+    from texocr_tpu_torch.parallel.mesh import create_mesh
+    from texocr_tpu_torch.parallel.sharding import batch_rows
+    from texocr_tpu_torch.training.optimizers import get_optimizer
+    from texocr_tpu_torch.training.train_step import create_train_state, make_train_step
+
+    mesh = create_mesh({axis: 2}, device="cuda") if sharded else None
+    torch.cuda.reset_peak_memory_stats()
+    model = flagship_model("bfloat16", mesh)
+    state = create_train_state(model, get_optimizer("Adam", {"lr": 5e-4}, model.parameters(),
+                                                    model.tp), seed=42)
+    step = make_train_step(mask_pad=True)
+    out = {"losses": [], "step_s": [], "launches": []}
+    for i in range(PARALLEL_STEPS):
+        images, labels = parallel_batch(i, PARALLEL_BATCHES[axis])
+        rows = batch_rows(len(images), mesh)
+        images, labels = (torch.from_numpy(x[rows]).cuda() for x in (images, labels))
+        fa.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["losses"].append(step(state, images, labels)["loss"].item())
+        out["step_s"].append(time.perf_counter() - t0)
+        out["launches"].append(fa.flash_attention.launches)
+    if logdir is not None:
+        out["profile"] = profiled_step(lambda: step(state, images, labels), logdir,
+                                       f"{axis}_rank{torch.distributed.get_rank()}")
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_decode(mesh=None) -> tuple:
+    """Float32 greedy decode of PARALLEL_DECODE's full canvases (one process,
+    or the whole batch under ``mesh``): (tokens, synchronised seconds, flash
+    launches)."""
+    from texocr_tpu_torch.models.generate import mesh_greedy_decode
+    from texocr_tpu_torch.ops import flash_attention as fa
+
+    n, steps = PARALLEL_DECODE
+    model = flagship_model("float32", mesh)
+    images = torch.from_numpy(parallel_batch(99, n)[0]).cuda()
+    fa.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = mesh_greedy_decode(model, images, mesh, max_len=steps)
+    torch.cuda.synchronize()
+    return tokens.cpu().numpy(), time.perf_counter() - t0, fa.flash_attention.launches
+
+
+def parallel_rank(logdir) -> dict:
+    """Phase 16b on one of two ranks sharing cuda:0 over gloo: {data: 2} and
+    {model: 2} training steps, the kernel at this rank's shapes against its
+    plain version, and the float32 decode under {model: 2}."""
+    import torch.distributed as dist
+
+    from texocr_tpu_torch.ops import flash_attention as fa
+    from texocr_tpu_torch.parallel.mesh import create_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent runs float32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(16 + dist.get_rank())
+    out = {"kernels": []}
+    for axis in PARALLEL_BATCHES:
+        out[axis] = parallel_steps(axis, True, logdir)
+        dist.barrier()
+    for b, h, n, dtype in RANK_SHAPES[:3]:
+        q, k, v = (split_heads(gen, b, h, n, 64, dtype) for _ in range(3))
+        _, _, err, ok, note = hold_kernel(fa, q, k, v, 64 ** -0.5)
+        out["kernels"].append({"shape": [b, h, n, 64], "dtype": str(dtype)[6:], "ok": ok,
+                               "max_abs_err": err, "note": note})
+    out["decode"] = parallel_decode(create_mesh({"model": 2}, device="cuda"))
+    return out
+
+
+def parallel_phase(fa, trained) -> dict:
+    """Phase 16: parallelism on the card (see the module docstring). These
+    are correctness phases: gloo stages CUDA tensors through the host and
+    the two ranks of (b) time-share one card, so no time here is a data- or
+    tensor-parallel speed."""
+    from texocr_tpu_torch.parallel.dryrun import dryrun_multichip, spawn
+
+    t = {}
+    t0 = time.perf_counter()
+    world1 = world1_phase(fa, trained)
+    t["a"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    single = {axis: parallel_steps(axis, False) for axis in PARALLEL_BATCHES}
+    single_tokens, single_decode_s, _ = parallel_decode()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn(parallel_rank, 2, (tmp,), store_dir=tmp)
+    failed = []
+    for axis, batch in PARALLEL_BATCHES.items():
+        want = single[axis]["losses"]
+        for rank, r in enumerate(ranks):
+            got = r[axis]
+            err = float(np.max(np.abs(np.array(got["losses"]) - want) / np.abs(want)))
+            ok = err <= PARALLEL_BF16_RTOL and got["launches"] == [N_LAYERS] * PARALLEL_STEPS
+            log(f"[parallel] (b) rank {rank} of 2 on cuda:0 over gloo, {{{axis}: 2}} at global "
+                f"batch {batch}: losses {got['losses']} against one process's {want}, max "
+                f"relative difference {err:.3e} (tol {PARALLEL_BF16_RTOL:g}); flash launches "
+                f"per step {got['launches']}; step s {got['step_s']} (one process: "
+                f"{single[axis]['step_s']}); peak memory {got['peak_memory_gb']:.2f} GB (one "
+                f"process: {single[axis]['peak_memory_gb']:.2f}); profiled step "
+                + json.dumps(got["profile"]) + f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"{axis} rank {rank}")
+    for rank, r in enumerate(ranks):
+        for row in r["kernels"]:
+            log(f"[parallel] (b) rank {rank}: flash_attention {row['dtype']} {row['shape']} "
+                f"split-head, kernel vs plain: {row['note']} {'ok' if row['ok'] else 'FAIL'}")
+            if not row["ok"]:
+                failed.append(f"kernel {row['shape']} rank {rank}")
+        tokens, decode_s, launches = r["decode"]
+        same = np.array_equal(tokens, single_tokens)
+        log(f"[parallel] (b) rank {rank}: float32 greedy decode of {PARALLEL_DECODE[0]} full "
+            f"canvases x {PARALLEL_DECODE[1]} steps under {{model: 2}}: tokens "
+            f"{'equal to' if same else 'DIFFER from'} one process's; {decode_s:.2f} s (one "
+            f"process: {single_decode_s:.2f} s); flash launches {launches}")
+        if not (same and launches == N_LAYERS):
+            failed.append(f"decode rank {rank}")
+    t["b"] = time.perf_counter() - t0
+    if failed:
+        raise AssertionError(f"phase 16b failed: {failed}")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dry = dryrun_multichip(2, device="cuda", store_dir=tmp)
+    t["c"] = time.perf_counter() - t0
+    log(f"[parallel] (c) dryrun_multichip(2) on cuda:0: loss {dry['loss']:.4f}; seconds per "
+        f"sub-phase " + json.dumps(t) + " (correctness phases: gloo stages CUDA tensors "
+        "through the host and the ranks time-share one card; not a parallel speed)")
+    return {"world1": world1, "single": single, "ranks": [
+        {axis: r[axis] for axis in PARALLEL_BATCHES} for r in ranks],
+        "launches": {"a": world1["launches"],
+                     **{f"b {axis} rank {i}": sum(r[axis]["launches"])
+                        for i, r in enumerate(ranks) for axis in PARALLEL_BATCHES},
+                     **{f"b decode rank {i}": r["decode"][2] for i, r in enumerate(ranks)}},
+        "seconds": t}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2174,6 +2522,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errors = phase("kernels", check_flash_kernel, fa, gen)
     timings = phase("kernel timing", time_flash, fa, gen)
+    rank_rows = phase("rank shape timing", time_rank_shapes, fa, gen)
     f32_launches = phase("golden", check_golden, fa)
     rng = np.random.default_rng(0)
     served = phase("serve", serve, fa, rng)
@@ -2181,7 +2530,8 @@ def main() -> int:
     graphed = phase("graphs", graphs_phase, fa, served["engine"], served["batch"], profiled)
     del served["engine"]
     encode_err = phase("encoder", check_encoder_paths, rng)
-    trained = phase("train", train, fa, rng)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    trained = phase("train", train, fa, rng, os.path.join(work, "phase8"))
     train_row = phase("train timing", time_train_attention, fa, gen)
     resident = phase("device data", device_data_phase, fa, rng)
     paths = {"int8": phase("int8", int8_phase, fa, served["batch"]),
@@ -2197,6 +2547,8 @@ def main() -> int:
     data = phase("data", data_phase, fa, rng)
     paths.update({f"data {kind}": {"launches": data[kind]["launches"],
                                    "encodes": data[kind]["encodes"]} for kind in ("eager", "lazy")})
+    parallel = phase("parallel", parallel_phase, fa, trained)
+    shutil.rmtree(work)
     launched = phase("launched shapes", check_launched, fa, gen, launch_log)
     log("[time] seconds per phase " + json.dumps(phase_s))
 
@@ -2228,7 +2580,12 @@ def main() -> int:
                       device_data_launches=resident["launches"],
                       device_data_launches_per_step=resident["launches_per_step"],
                       launches_per_path={name: {"launches": r["launches"], "encodes": r["encodes"]}
-                                         for name, r in paths.items()})
+                                         for name, r in paths.items()},
+                      rank_shapes=rank_rows,
+                      parallel_launches={k: v for k, v in parallel["launches"].items()
+                                         if "decode" not in k})
+    kernels[1].update(parallel_launches={k: v for k, v in parallel["launches"].items()
+                                         if "decode" in k})
     log(json.dumps({"kernels": kernels}))
     log(f"[serve] median per-request s {served['request_s']}, batch img/s "
         f"{BATCH / served['batch_s']} on {card}")
@@ -2255,6 +2612,13 @@ def main() -> int:
         f"pure Python {data['tokenizer']['labels_per_s']['python']:.0f} on {host_cpu()}; "
         f"epoch wall s eager {data['eager']['epoch_s']:.3f}, lazy {data['lazy']['epoch_s']:.3f} "
         f"on {card}")
+    world1 = parallel["world1"]
+    log(f"[parallel] (a) NCCL world of 1: step {world1['step_s_median']} s against phase 8's "
+        f"{world1['phase8_step_s_median']} s, gradient all-reduce {world1['grad_bytes']} bytes "
+        f"in {world1['grad_all_reduce_ms']} ms; (b) peak memory per rank GB "
+        + json.dumps({axis: [r[axis]["peak_memory_gb"] for r in parallel["ranks"]]
+                      for axis in PARALLEL_BATCHES})
+        + f"; seconds {parallel['seconds']} on {card}")
     log(card_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

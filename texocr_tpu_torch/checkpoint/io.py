@@ -7,6 +7,11 @@ the highest epoch is the latest), stored with ``torch.save`` as one
 containers only. The JAX package's checkpoints are orbax directories, which
 cannot be read without orbax: carry JAX weights across with
 ``convert.state_dict_from_jax`` instead.
+
+Checkpoints are mesh-independent: on a process mesh the training loop saves
+the full, reference-keyed model and optimizer state gathered from the model
+ranks' slices (rank 0 writes), and on load each rank takes its slices
+(``parallel/sharding.py``). A checkpoint of any mesh loads into one process.
 """
 
 from __future__ import annotations

@@ -63,6 +63,7 @@ _DEFAULTS: Dict[str, Any] = {
     "save_dir": "checkpoints",
     "save_freq": 1,
     "val_freq": 1,
+    "mesh": {"data": -1, "model": 1},  # the process mesh (parallel/mesh.py)
 }
 
 #: The flagship architecture (the reference's config/config.yml widths): embed

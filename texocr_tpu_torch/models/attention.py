@@ -50,6 +50,8 @@ from torch.utils.checkpoint import checkpoint
 
 from texocr_tpu_torch.models.layers import MLP, TorchDense
 from texocr_tpu_torch.ops.attention_core import attention_core, math_attention
+from texocr_tpu_torch.parallel.layers import copy_to_model, row_parallel
+from texocr_tpu_torch.parallel.mesh import NO_AXIS, MeshAxis
 
 #: Per-layer {"k", "v"} buffers, each (B, H, T, dh); with int8 self-KV also
 #: {"k8", "v8"} (B, H, T, dh) int8 and {"sk", "sv"} (B, H, T) scales.
@@ -156,12 +158,20 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 class MultiHeadAttention(nn.Module):
+    """Under tensor parallelism (``shard``) the layer holds
+    ``heads / model`` whole heads: q/k/v are column-parallel, ``fc_out``
+    row-parallel (the partial products summed over the model group before
+    the GLU, its bias added once after the sum), and the decode caches and
+    cross-attention K/V hold the local heads."""
+
     def __init__(self, embed_dim: int, heads: int = 8, dim_head: int = 64,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
                  causal: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
+        self.dim_head = dim_head
+        self.tp = NO_AXIS
         self.scale = dim_head ** -0.5
         self.use_flash = use_flash
         self.causal = causal
@@ -171,11 +181,23 @@ class MultiHeadAttention(nn.Module):
         # nn.Sequential(Linear, GLU) in the reference: keys fc_out.0.*.
         self.fc_out = nn.Sequential(TorchDense(inner, embed_dim * 2, dtype=dtype))
 
+    def shard(self, tp: MeshAxis) -> None:
+        """After the parameters were cut to this rank's slices: takes the
+        local head count from q's rows and, where the heads are split,
+        reduces over ``tp``."""
+        local = self.q.weight.shape[0] // self.dim_head
+        if local < self.heads:
+            self.heads, self.tp = local, tp
+
     def project_kv(self, src: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._kv(copy_to_model(src, self.tp))
+
+    def _kv(self, src: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K and V of ``src`` that has entered the model group."""
         return _split_heads(self.k(src), self.heads), _split_heads(self.v(src), self.heads)
 
     def _finish(self, out_heads: torch.Tensor) -> torch.Tensor:
-        return F.glu(self.fc_out(_merge_heads(out_heads)), dim=-1)
+        return F.glu(row_parallel(self.fc_out[0], _merge_heads(out_heads), self.tp), dim=-1)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
@@ -189,9 +211,10 @@ class MultiHeadAttention(nn.Module):
         ``return_maps``: returns (out, maps), the pre- and post-softmax maps
         of ``math_attention``, which it then always takes (the kernel keeps no
         maps)."""
+        x = copy_to_model(x, self.tp)
         q = _split_heads(self.q(x), self.heads)
+        k, v = self._kv(x) if context is None else self.project_kv(context)
         src = x if context is None else context
-        k, v = self.project_kv(src)
         allowed = None  # (B, 1, Nq, Nk) bool, True = may attend
         if mask is not None or context_mask is not None:
             q_mask = mask if mask is not None else torch.ones(
@@ -215,8 +238,9 @@ class MultiHeadAttention(nn.Module):
         """Cached self-attention for the token at position ``t``: writes its
         K/V into ``cache`` in place and attends over positions 0..t; with an
         int8 cache, positions below ``t0`` (the merged chunks) in int8."""
+        x_t = copy_to_model(x_t, self.tp)
         q = _split_heads(self.q(x_t), self.heads)  # (B, H, 1, dh)
-        k, v = self.project_kv(x_t)
+        k, v = self._kv(x_t)
         cache["k"][:, :, t] = k[:, :, 0]
         cache["v"][:, :, t] = v[:, :, 0]
         if "k8" in cache:
@@ -232,7 +256,8 @@ class MultiHeadAttention(nn.Module):
         ``key_mask``: (B, Nk) bool, False at padded keys. ``x_t`` holds
         beam rows per image, (B * beam, 1, D), all attending their image's
         unexpanded K/V."""
-        q = _split_heads(self.q(x_t), self.heads)  # (B * beam, H, 1, dh)
+        # (B * beam, H, 1, dh)
+        q = _split_heads(self.q(copy_to_model(x_t, self.tp)), self.heads)
         batch = kv["k8" if "k8" in kv else "k"].shape[0]
         beam = q.shape[0] // batch
         # (B, H, beam, dh): an image's beams are the queries of one attention.
@@ -272,6 +297,14 @@ class AttentionStack(nn.Module):
                 blocks.append(MultiHeadAttention(embed_dim, heads, dim_head, dtype, use_flash))
             blocks.append(MLP(embed_dim, exp_factor, glu, dtype))
         self.layers = nn.ModuleList([nn.ModuleList([norm, block]) for block in blocks])
+
+    def shard(self, tp: MeshAxis) -> None:
+        """After the parameters were cut to this rank's slices: every
+        attention and MLP block takes its tensor-parallel form, and the
+        decode caches hold the local heads."""
+        for _, block in self.layers:
+            block.shard(tp)
+        self.heads = self.layers[0][1].heads
 
     @property
     def shared_norm(self) -> nn.LayerNorm:

@@ -138,6 +138,7 @@ def beam_decode(
     log-prob sum). ``length_penalty`` alpha ranks beams by
     score / ((5 + len) / 6) ** alpha (GNMT); 0 ranks by the raw sum.
     ``enc_mask``: (B, Nk) bool, False at padded encoder positions."""
+    model.check_unsharded("beam decode")
     state = BeamState(model, model.decoder_cross_kv(enc), bos_token=bos_token,
                       eos_token=eos_token, pad_token=pad_token, max_len=max_len,
                       beam_size=beam_size, enc_mask=enc_mask)

@@ -18,6 +18,12 @@ to the host. ``decode_chunks`` is the loop between chunks. The eager entry
 points below run the chunks as they are; ``graphed.make_graphed_generate``
 captures each chunk in a CUDA graph and replays it.
 
+Under a mesh (a model built with ``mesh=``), ``greedy_decode`` runs on the
+model's local heads, its cached step reducing over the model group, and
+``mesh_greedy_decode`` splits a batch's rows over the data group and gathers
+the tokens back. Sampled and beam decode, and the CUDA-graph engine, take no
+tensor-parallel model (the JAX wrapper never shards either) and raise.
+
 Sampling draws with the Gumbel-max trick (argmax of logits / temp plus Gumbel
 noise from the caller's ``torch.Generator``): a draw from the same
 categorical distribution as ``jax.random.categorical``, not the same draws.
@@ -37,10 +43,12 @@ from texocr_tpu_torch.models.attention import (
 )
 from texocr_tpu_torch.models.beam import BeamState
 from texocr_tpu_torch.models.ocr_model import OCRModel
+from texocr_tpu_torch.parallel.layers import gather_rows
+from texocr_tpu_torch.parallel.sharding import batch_rows
 from texocr_tpu_torch.utils import topk_filter
 
 __all__ = ["DECODE_CHUNK", "DecodeState", "decode_state", "greedy_decode",
-           "sampled_decode", "generate"]
+           "mesh_greedy_decode", "sampled_decode", "generate"]
 
 DECODE_MODES = ("greedy", "sample", "beam")
 
@@ -145,6 +153,23 @@ def greedy_decode(
 
 
 @torch.inference_mode()
+def mesh_greedy_decode(model: OCRModel, images: torch.Tensor, mesh, *, max_len: int
+                       ) -> torch.Tensor:
+    """Greedy decode of a whole batch under ``model``'s mesh, the
+    counterpart of the JAX package's jitted decode on a batch sharded over
+    'data' and parameters over 'model': this data rank encodes and decodes
+    its rows of ``images`` (B, H, W, 1) with its model group, and every rank
+    returns all B rows of tokens (B, max_len), with the config's BOS, EOS
+    and PAD."""
+    cfg = model.config
+    model.check_decodes()
+    rows = batch_rows(images.shape[0], mesh)
+    tokens = greedy_decode(model, model.encode(images[rows]), bos_token=cfg.bos_token,
+                           eos_token=cfg.eos_token, pad_token=cfg.pad_token, max_len=max_len)
+    return gather_rows(tokens, model.data)
+
+
+@torch.inference_mode()
 def sampled_decode(
     model: OCRModel,
     enc: torch.Tensor,
@@ -161,6 +186,7 @@ def sampled_decode(
 ):
     """The reference's sampling (``sampler``), its noise from ``generator``
     (on ``enc``'s device). Returns what ``greedy_decode`` returns."""
+    model.check_unsharded("sampled decode")
     return _run(DecodeState(model, model.decoder_cross_kv(enc),
                             sampler(generator, temp, topk_threshold), bos_token=bos_token,
                             eos_token=eos_token, pad_token=pad_token, max_len=max_len,
@@ -169,8 +195,12 @@ def sampled_decode(
 
 def check_mode(model: OCRModel, mode: str, generator: Optional[torch.Generator]) -> None:
     """Raises ``ValueError`` for a decode that cannot run: an unknown mode,
-    sampling without a generator, or a decoder without cross-attention."""
+    sampling without a generator, or a decoder without cross-attention; and
+    ``NotImplementedError`` for sampled or beam decode on a tensor-parallel
+    model."""
     model.check_decodes()
+    if mode != "greedy":
+        model.check_unsharded(f"{mode} decode")
     if mode not in DECODE_MODES:
         raise ValueError(f"unknown decode mode: {mode!r}")
     if mode == "sample" and generator is None:

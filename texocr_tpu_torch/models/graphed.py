@@ -63,6 +63,7 @@ class GraphedGenerate:
         device = next(model.parameters()).device
         if device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device; the model is on {device}")
+        model.check_unsharded("the CUDA-graph decode")
         check_mode(model, mode, generator)
         self.model = model
         self.generator = generator if mode == "sample" else None

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from texocr_tpu_torch.parallel.layers import copy_to_model, row_parallel
+from texocr_tpu_torch.parallel.mesh import NO_AXIS, MeshAxis
 from texocr_tpu_torch.utils import same_pad_lo_hi
 
 
@@ -124,18 +126,29 @@ class GEGLU(nn.Module):
 class MLP(nn.Module):
     """Transformer FFN: GeGLU (``glu``, keys ``fc_in.fc.*``) or dense + exact
     erf gelu (held as the reference's ``nn.Sequential(Linear, GELU)``: keys
-    ``fc_in.0.*``), then dense back to embed."""
+    ``fc_in.0.*``), then dense back to embed. Under tensor parallelism
+    (``shard``) ``fc_in`` is column-parallel (GeGLU's value and gate halves
+    each split, ``parallel/sharding.py``) and ``fc_out`` row-parallel, its
+    bias added once after the sum."""
 
     def __init__(self, embed_dim: int, exp_factor: int = 4, glu: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        hidden = embed_dim * exp_factor
-        self.fc_in = (GEGLU(embed_dim, hidden, dtype) if glu
-                      else nn.Sequential(TorchDense(embed_dim, hidden, dtype=dtype), nn.GELU()))
-        self.fc_out = TorchDense(hidden, embed_dim, dtype=dtype)
+        self.hidden = embed_dim * exp_factor
+        self.tp = NO_AXIS
+        self.fc_in = (GEGLU(embed_dim, self.hidden, dtype) if glu
+                      else nn.Sequential(TorchDense(embed_dim, self.hidden, dtype=dtype),
+                                         nn.GELU()))
+        self.fc_out = TorchDense(self.hidden, embed_dim, dtype=dtype)
+
+    def shard(self, tp: MeshAxis) -> None:
+        """After the parameters were cut to this rank's slices: reduces over
+        ``tp`` where the hidden units are split."""
+        if self.fc_out.weight.shape[1] < self.hidden:
+            self.tp = tp
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc_out(self.fc_in(x))
+        return row_parallel(self.fc_out, self.fc_in(copy_to_model(x, self.tp)), self.tp)
 
 
 class PatchConv(nn.Module):

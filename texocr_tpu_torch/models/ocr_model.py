@@ -12,6 +12,12 @@ decoder without cross-attention reads no encoder output, so ``forward`` does
 not encode (the JAX package's jitted step drops that dead encode as well);
 its encoder's parameters get no gradient.
 
+On a mesh (``mesh=``, ``parallel/mesh.py``) every rank builds the full model
+from the seed, as one process does, then keeps its slices
+(``parallel/sharding.py``): each rank starts from the single-process
+weights. ``full_shapes`` records the full shape of every state-dict key,
+which ``gather_state_dict`` needs to put the slices back together.
+
 The ``decoder_*`` methods are the cached decode's: the self-attention cache
 and the cross-attention K/V follow ``config.self_kv_quant`` and
 ``config.kv_quant``; they need the decoder's cross-attention layers
@@ -20,7 +26,7 @@ and the cross-attention K/V follow ``config.self_kv_quant`` and
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -29,6 +35,8 @@ from texocr_tpu_torch.config import ModelConfig, resolve_flash
 from texocr_tpu_torch.models.decoder import TransformerDecoder
 from texocr_tpu_torch.models.encoder import VisionEncoder
 from texocr_tpu_torch.models.layers import init_torch_default
+from texocr_tpu_torch.parallel.mesh import mesh_axis
+from texocr_tpu_torch.parallel.sharding import shard_tensor
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -36,9 +44,11 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class OCRModel(nn.Module):
     """The model on ``device`` (CUDA unless the caller asks otherwise), with
     weights drawn from a ``torch.Generator`` seeded with ``seed`` the way
-    torch initialises the reference (load a state dict to replace them)."""
+    torch initialises the reference (load a state dict to replace them).
+    ``mesh``: a data x model ``DeviceMesh``; the model then holds this
+    rank's slices, and ``data`` and ``tp`` are its axes."""
 
-    def __init__(self, config: ModelConfig, device="cuda", seed: int = 0):
+    def __init__(self, config: ModelConfig, device="cuda", seed: int = 0, mesh=None):
         super().__init__()
         self.config = config
         dtype = DTYPES[config.dtype]
@@ -53,6 +63,30 @@ class OCRModel(nn.Module):
             for emb in (self.dec.token_embedding, self.dec.pos_embedding.embedding):
                 emb.weight.normal_(0.0, 0.02, generator=generator)
         self.to(device)
+        self.full_shapes: Dict[str, torch.Size] = {k: v.shape
+                                                   for k, v in self.state_dict().items()}
+        self.data, self.tp = mesh_axis(mesh, "data"), mesh_axis(mesh, "model")
+        if mesh is not None:
+            self._shard()
+
+    def _shard(self) -> None:
+        """Cuts every parameter to this rank's slice and puts the blocks in
+        their tensor-parallel form (split parameters are marked
+        ``tensor_model_parallel``: the gradient clip sums their norms over
+        the model group)."""
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                local = shard_tensor(name, p.data, self.tp.size, self.tp.rank)
+                if local.shape != p.shape:
+                    p.data = local
+                    p.tensor_model_parallel = True
+        self.encoder.attn_layers.shard(self.tp)
+        self.dec.shard(self.data, self.tp)
+
+    def parameter_keys(self) -> List[str]:
+        """The state-dict key of each parameter, in ``parameters()`` order
+        (the optimizer's indices)."""
+        return [name for name, _ in self.named_parameters()]
 
     @property
     def dec(self) -> TransformerDecoder:
@@ -81,6 +115,14 @@ class OCRModel(nn.Module):
         """Raises ``ValueError`` unless the decoder has the cross-attention
         layers the cached decode needs: call before encoding for a decode."""
         self.dec.attn_layers.check_decodes()
+
+    def check_unsharded(self, what: str) -> None:
+        """Raises ``NotImplementedError`` for ``what`` (sampled or beam
+        decode, the CUDA-graph engine) on a tensor-parallel model: only
+        greedy decode runs on one."""
+        if self.tp.size > 1:
+            raise NotImplementedError(f"{what} does not run on a tensor-parallel model yet; "
+                                      "greedy decode does")
 
     def decoder_init_cache(self, batch: int, max_len: int, device):
         return self.dec.attn_layers.init_cache(batch, max_len, device,

@@ -21,7 +21,10 @@ device, so a training step needs no host batch.
   The train runner reads rows ``perm[((start + s) * B + j) % n]`` of one
   permutation per (seed, epoch, bucket) (``epoch_permutation``), so the calls
   of an epoch make one pass without replacement whatever the chunking. No
-  step reads anything back to the host.
+  step reads anything back to the host. On a mesh every rank holds every
+  bucket and draws the same permutation, and a step gathers only its data
+  rank's ``rows`` of the batch (the augmentation's draws are the whole
+  batch's, of which it keeps those rows).
 """
 
 from __future__ import annotations
@@ -228,14 +231,18 @@ def scale_translate(images: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     return torch.bmm(out, ww)[..., None]
 
 
-def augment_batch(images: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def augment_batch(images: torch.Tensor, generator: torch.Generator,
+                  rows: Optional[slice] = None, batch: Optional[int] = None) -> torch.Tensor:
     """Train-time augmentation on the device, in ink space (0 = background),
     after the gather: per sample a scale U(0.85, 1.05) about the centre, a
     shift dy U(-3, 3) and dx U(-8, 8) pixels, and a brightness factor
     U(0.9, 1.1), then clipped to [0, 1]. ``generator`` lives on the images'
-    device and makes all the draws."""
-    b = images.shape[0]
-    u = torch.rand((4, b), generator=generator, device=images.device)
+    device and makes all the draws. ``images`` may be ``rows`` of a batch of
+    ``batch`` samples: the draws are then the whole batch's, and these rows'
+    are used."""
+    u = torch.rand((4, batch or images.shape[0]), generator=generator, device=images.device)
+    if rows is not None:
+        u = u[:, rows]
     scale, dy, dx, bright = (lo + (hi - lo) * r for (lo, hi), r in zip(
         ((0.85, 1.05), (-3.0, 3.0), (-8.0, 8.0), (0.9, 1.1)), u))
     out = scale_translate(images, scale, dy, dx)
@@ -250,18 +257,20 @@ def epoch_permutation(n: int, seed: int, epoch: int, bucket_tag: int, device) ->
     return torch.randperm(n, generator=generator, device=device)
 
 
-def make_chunk_train_step(batch_size: int, *, mask_pad: bool = True, augment: bool = False):
+def make_chunk_train_step(batch_size: int, *, mask_pad: bool = True, augment: bool = False,
+                          rows: Optional[slice] = None):
     """(state, bucket, perm, n_steps, start) -> {"loss", "token_acc"}, the
     means over ``n_steps`` optimizer steps as device scalars. Step ``s``
     trains on rows ``perm[((start + s) * batch_size + j) % bucket.n]``,
     augmented with a generator seeded from (seed, step) when ``augment``;
-    dropout is the train step's own."""
+    dropout is the train step's own. ``rows``: this data rank's j of the
+    ``batch_size`` (all of them by default)."""
     train_step = make_train_step(mask_pad=mask_pad)
 
     def run(state: TrainState, bucket: DeviceBucket, perm: torch.Tensor, n_steps: int,
             start: int) -> Dict[str, torch.Tensor]:
         device = bucket.images.device
-        offsets = torch.arange(batch_size, device=device)
+        offsets = torch.arange(batch_size, device=device)[rows or slice(None)]
         loss = torch.zeros((), device=device)
         acc = torch.zeros((), device=device)
         for s in range(n_steps):
@@ -269,7 +278,8 @@ def make_chunk_train_step(batch_size: int, *, mask_pad: bool = True, augment: bo
             images, labels = gather_batch(bucket, idx)
             if augment:
                 images = augment_batch(
-                    images, seeded_generator(device, state.seed, state.step, AUGMENT_TAG))
+                    images, seeded_generator(device, state.seed, state.step, AUGMENT_TAG),
+                    rows, batch_size)
             metrics = train_step(state, images, labels)
             loss += metrics["loss"]
             acc += metrics["token_acc"]
@@ -278,15 +288,16 @@ def make_chunk_train_step(batch_size: int, *, mask_pad: bool = True, augment: bo
     return run
 
 
-def make_chunk_eval_step(batch_size: int, *, mask_pad: bool = True):
+def make_chunk_eval_step(batch_size: int, *, mask_pad: bool = True,
+                         rows: Optional[slice] = None):
     """(model, bucket, n_steps, start) -> the mean loss, a device scalar,
     over ``n_steps`` batches that walk the bucket in storage order from batch
-    offset ``start``, without dropout."""
+    offset ``start``, without dropout; ``rows`` as for the train runner."""
     eval_step = make_eval_step(mask_pad=mask_pad)
 
     def run(model, bucket: DeviceBucket, n_steps: int, start: int) -> torch.Tensor:
         device = bucket.images.device
-        offsets = torch.arange(batch_size, device=device)
+        offsets = torch.arange(batch_size, device=device)[rows or slice(None)]
         total = torch.zeros((), device=device)
         for s in range(n_steps):
             idx = ((start + s) * batch_size + offsets) % bucket.n

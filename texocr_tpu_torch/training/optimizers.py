@@ -13,7 +13,10 @@ is ``optax.warmup_cosine_decay_schedule``'s formula as a ``LambdaLR``: linear
 from 0 to ``lr`` over W steps, then a cosine to E over D - W steps (D counts
 the warmup), held at E after. ``grad_clip`` scales the gradients by
 ``min(1, c / global_norm)`` before the update, as ``optax.clip_by_global_norm``
-does (no epsilon in the norm), on the device without a host sync.
+does (no epsilon in the norm), on the device without a host sync. Under
+tensor parallelism the norm is the full gradient's: the squared norms of the
+split parameters (marked ``tensor_model_parallel``) are summed over the
+model group, and the replicated ones counted once.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ import math
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
+
+from texocr_tpu_torch.parallel.layers import all_reduce_sum
+from texocr_tpu_torch.parallel.mesh import NO_AXIS, MeshAxis
 
 
 def warmup_cosine_decay(peak: float, warmup_steps: int, decay_steps: int,
@@ -47,28 +53,30 @@ def warmup_cosine_decay(peak: float, warmup_steps: int, decay_steps: int,
 class Optimizer:
     """A ``torch.optim`` optimizer with the optax chain's global-norm clip
     before it and its learning-rate schedule after it. ``step()`` applies one
-    update from the parameters' ``.grad``."""
+    update from the parameters' ``.grad``. ``model_axis``: the model group
+    whose ranks hold the other slices of the split parameters."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  scheduler: Optional[torch.optim.lr_scheduler.LambdaLR] = None,
-                 grad_clip: Optional[float] = None):
+                 grad_clip: Optional[float] = None, model_axis: MeshAxis = NO_AXIS):
         self.optimizer = optimizer
         self.scheduler = scheduler
         self.grad_clip = grad_clip
+        self.model_axis = model_axis
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
     def step(self) -> None:
         if self.grad_clip:
-            clip_by_global_norm(self._grads(), self.grad_clip)
+            params = [p for group in self.optimizer.param_groups for p in group["params"]
+                      if p.grad is not None]
+            split = [p.grad for p in params if getattr(p, "tensor_model_parallel", False)]
+            whole = [p.grad for p in params if not getattr(p, "tensor_model_parallel", False)]
+            clip_by_global_norm(whole, self.grad_clip, split, self.model_axis)
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
-
-    def _grads(self):
-        return [p.grad for group in self.optimizer.param_groups for p in group["params"]
-                if p.grad is not None]
 
     def state_dict(self) -> Dict:
         state = {"optimizer": self.optimizer.state_dict()}
@@ -82,21 +90,39 @@ class Optimizer:
             self.scheduler.load_state_dict(state["scheduler"])
 
 
-def clip_by_global_norm(grads, max_norm: float) -> None:
-    """Scales ``grads`` in place by ``max_norm / norm`` where their global L2
-    norm is at least ``max_norm`` (optax.clip_by_global_norm)."""
-    if not grads:
-        return
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+def clip_by_global_norm(grads, max_norm: float, split=(),
+                        model_axis: MeshAxis = NO_AXIS) -> None:
+    """Scales ``grads`` and ``split`` in place by ``max_norm / norm`` where
+    their global L2 norm is at least ``max_norm`` (optax.clip_by_global_norm).
+    ``grads``: gradients of replicated parameters, counted once; ``split``:
+    this rank's slices of parameters split over ``model_axis``, whose squared
+    norms are summed over it."""
+    grads, split = list(grads), list(split)
+    if model_axis.group is None:
+        grads += split
+        if not grads:
+            return
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    else:
+        device = (grads + split)[0].device
+
+        def squares(gs):
+            norms = [torch.linalg.vector_norm(g.float()) for g in gs]
+            return torch.stack(norms).square().sum() if norms else torch.zeros((), device=device)
+
+        norm = torch.sqrt(squares(grads) + all_reduce_sum(squares(split), model_axis))
+        grads += split
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
 
 
-def get_optimizer(name: str, args: dict, params: Iterable[torch.nn.Parameter]) -> Optimizer:
+def get_optimizer(name: str, args: dict, params: Iterable[torch.nn.Parameter],
+                  model_axis: MeshAxis = NO_AXIS) -> Optimizer:
     """'Adam' / 'AdamW' / 'SGD' with torch-style arguments (``lr``,
     ``weight_decay``, ``betas``, ``eps``, ``momentum``, and ``lr_schedule``
-    and ``grad_clip`` as the module docstring says) over ``params``."""
+    and ``grad_clip`` as the module docstring says) over ``params``, some
+    of them split over ``model_axis`` (a sharded model's ``tp``)."""
     args = dict(args)
     lr = args.pop("lr", 1e-3)
     grad_clip = args.pop("grad_clip", None)
@@ -122,4 +148,4 @@ def get_optimizer(name: str, args: dict, params: Iterable[torch.nn.Parameter]) -
                                        float(sched.get("end_value", 0.0)))
         scheduler = torch.optim.lr_scheduler.LambdaLR(
             opt, lambda count: schedule(count) / lr if lr else 0.0)
-    return Optimizer(opt, scheduler, float(grad_clip) if grad_clip else None)
+    return Optimizer(opt, scheduler, float(grad_clip) if grad_clip else None, model_axis)

@@ -4,6 +4,12 @@ The state is updated in place (the JAX package returns a new, donated one).
 The dropout generator of step ``s`` is seeded from (seed, s), as the JAX
 package folds the step into its dropout key, so a resumed run continues the
 mask sequence. Metrics stay on the device; reading them is the caller's sync.
+
+On a mesh each data rank trains on its rows of the global batch: its loss is
+its share of the global loss (``losses.py``), the gradients are summed (not
+averaged) over the data group in flat buckets after the backward, and the
+metrics are the global batch's. DDP would average over the whole world and
+knows nothing of the model group, so the step does this itself.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import numpy as np
 import torch
 
 from texocr_tpu_torch.models.ocr_model import OCRModel
+from texocr_tpu_torch.parallel.layers import all_reduce_grads, all_reduce_sum
 from texocr_tpu_torch.training.losses import sequence_ce_loss
 from texocr_tpu_torch.training.optimizers import Optimizer
 
@@ -44,13 +51,15 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def _loss_and_acc(model: OCRModel, images, labels, mask_pad: bool, generator=None):
+    """(this rank's share of the loss, the global token accuracy)."""
     logits, shifted = model(images, labels, generator=generator)
     pad = model.config.pad_token
-    loss = sequence_ce_loss(logits, shifted, pad_token=pad, mask_pad=mask_pad)
+    loss = sequence_ce_loss(logits, shifted, pad_token=pad, mask_pad=mask_pad, data=model.data)
     with torch.no_grad():
         acc_mask = (shifted != pad) if mask_pad else torch.ones_like(shifted, dtype=torch.bool)
         hits = (logits.argmax(-1) == shifted) & acc_mask
-        acc = hits.sum() / acc_mask.sum().clamp(min=1)
+        acc = (all_reduce_sum(hits.sum(), model.data)
+               / all_reduce_sum(acc_mask.sum(), model.data).clamp(min=1))
     return loss, acc
 
 
@@ -65,19 +74,21 @@ def make_train_step(*, mask_pad: bool = True):
         state.optimizer.zero_grad()
         loss, acc = _loss_and_acc(model, images, labels, mask_pad, generator)
         loss.backward()
+        all_reduce_grads(model.parameters(), model.data)
         state.optimizer.step()
         state.step += 1
-        return {"loss": loss.detach(), "token_acc": acc}
+        return {"loss": all_reduce_sum(loss.detach(), model.data), "token_acc": acc}
 
     return train_step
 
 
 def make_eval_step(*, mask_pad: bool = True):
-    """(model, images, labels) -> the loss, a device scalar, without dropout."""
+    """(model, images, labels) -> the loss, a device scalar, without dropout
+    (on a mesh: the global batch's, from this rank's rows)."""
 
     @torch.no_grad()
     def eval_step(model: OCRModel, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        return _loss_and_acc(model, images, labels, mask_pad)[0]
+        return all_reduce_sum(_loss_and_acc(model, images, labels, mask_pad)[0], model.data)
 
     return eval_step
 
