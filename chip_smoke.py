@@ -35,7 +35,8 @@ Phases, each fatal on failure:
      bit-equal to the eager path's (the generator reseeded alike), beam's best
      scores too, two successive sampled calls that differ, 4 flash launches
      per encode counted on replays, and the float32 golden model's greedy
-     tokens exact through the graphs. Prints per mode, eager and graph in this
+     tokens exact through the graphs (the package's float-input engine,
+     make_graphed_generate(..., float_input=True)). Prints per mode, eager and graph in this
      call: decode wall (median of REPEATS), device time, kernels a step, busy
      share; the capture's seconds and the memory the key holds; encode wall
      and device time for both (phase 6's eager numbers for greedy and
@@ -98,8 +99,16 @@ Phases, each fatal on failure:
      image). Prints p50 and p99 latency, decode_image's time per request and
      the batches formed.
  13. eval: evaluation.evaluate.test_model on a pickled test split of two
-     batches of 8 full canvases, greedy and beam 5: its metrics must equal
-     those computed from TexOCR.generate_batch on the same collated batches.
+     batches of 8 full canvases, greedy and beam 5, on the CUDA model: each
+     batch decodes through the CUDA graphs of its key (float input), the
+     first batch of a key capturing them. Fatal unless its metrics equal
+     those computed from TexOCR.generate_batch on the same collated batches,
+     its pairs_out tokens equal, bit for bit, an eager generate on the same
+     collated float batches, and the flash kernel launched 4 times per
+     encode (each replay, and each capture's eager warm-up encode). Prints
+     per mode the keys, the first key's capture seconds, each batch's wall
+     time on the graphs after capture beside the eager wall time of the same
+     batch, and from how many batches of a key the graphs win.
  13b. variants: the model variants at the flagship's full width, bf16, seeded
      random weights, on the serving batch of 8 full canvases. patch
      (encoder.embed_layer: patch) and glu false (the decoder's dense + gelu
@@ -153,24 +162,27 @@ Phases, each fatal on failure:
      PARALLEL_STEPS Adam steps under {data: 2} at global batch 128 and under
      {model: 2} at 32, losses within PARALLEL_BF16_RTOL of one process's on
      the same global batches, 4 flash launches per step; each rank holds the
-     kernel at its shapes against its plain version; float32 greedy decode of
-     2 full canvases x 32 steps under {model: 2} equal to one process's
-     tokens; prints per rank the step times, peak memory and a profiled
-     step's share in collectives. (c) dryrun_multichip(2) on cuda:0. These
-     are correctness phases: gloo stages CUDA tensors through the host and
-     the ranks time-share one card, so no time here is a parallel speed.
+     kernel at its shapes against its plain version; float32 mesh_generate
+     of 2 full canvases x 32 steps under {model: 2} and under {data: 2}, in
+     greedy, sampling at 0.3 from one seed, beam 5, and greedy with int8
+     cross and self caches: tokens equal to one process's, 4 flash launches
+     per encode; prints per rank the step times, peak memory, a profiled
+     step's share in collectives and each decode's seconds. (c)
+     dryrun_multichip(2) on cuda:0. These are correctness phases: gloo
+     stages CUDA tensors through the host and the ranks time-share one
+     card, so no time here is a parallel speed.
  14. launched shapes: every flash launch from phase 3 on is recorded (shapes,
      type, strides, alignment, scale, causal, kv_lens) by the phase that made
      it; each signature that phases 4-13b and 15 launched and phase 3 did not check
      (the batcher's padded batches, the float32 checks at 2 canvases, the
-     golden model's) is held against the plain version here, on fresh
+     golden model's, evaluation's captures) is held against the plain version here, on fresh
      operands of the same strides and alignment, as phase 3 holds its cases.
 Every phase that encodes asserts 4 flash launches per encode on its main
 path; a CUDA graph's replay counts the launches its capture made, and a
 capture counts none; phase 15 trains through training.cli. Phases 5, 9-13
-and 13b decode through TexOCR, so
-through CUDA graphs; the eager checks of phases 4, 9-11 and 13b and
-evaluation's test_model stay eager. Then the seconds each phase took, one
+and 13b decode through TexOCR, and phase 13's test_model through its own
+float-input engines, so through CUDA graphs; the eager checks of phases 4,
+9-11, 13 and 13b and phase 16's decodes stay eager. Then the seconds each phase took, one
 JSON line of per-kernel numbers, the card's name and power limit, and the last
 line {"ok": true, "device": {...}}.
 """
@@ -251,11 +263,17 @@ PARALLEL_DECODE = (2, 32)  # phase 16b's float32 decode: full canvases, steps
 PARALLEL_TIMED = 4  # phase 16a's synchronised full-canvas steps
 WORLD1_RTOL = 5e-4  # phase 16a's epoch losses against phase 8's (bf16; atomics reorder sums)
 PARALLEL_BF16_RTOL = 1e-3  # phase 16b's bf16 losses against the single process's
+PARALLEL_SAMPLE_SEED = 16  # phase 16b's sampling generator, the same in every process
+# Phase 16b's float32 decodes: greedy, sampling at 0.3, beam 5, and greedy
+# with int8 cross and self caches.
+PARALLEL_DECODE_MODES = ("greedy", "sample", "beam", "int8")
 # Phase 16's per-rank encoder attention, (B, H, N, dtype): {data: 2} at batch
-# 128, {model: 2} at batch 32, its float32 decode's encode of 2 canvases,
-# and the dry run's 32 x 64 images on 2 ranks.
+# 128, {model: 2} at batch 32, the float32 decodes' encode of 2 canvases
+# under {model: 2} and of 1 under {data: 2}, and the dry run's 32 x 64 images
+# on 2 ranks.
 RANK_SHAPES = ((64, 8, 631, torch.bfloat16), (32, 4, 631, torch.bfloat16),
-               (2, 4, 631, torch.float32), (2, 8, 9, torch.float32))
+               (2, 4, 631, torch.float32), (1, 8, 631, torch.float32),
+               (2, 8, 9, torch.float32))
 
 def log(msg):
     print(msg, flush=True)
@@ -768,7 +786,7 @@ def graphs_phase(fa, engine, batch, profiled) -> dict:
     decode, the eager half of greedy's pair."""
     from texocr_tpu_torch.models.attention import decode_chunks
     from texocr_tpu_torch.models.generate import decode_state
-    from texocr_tpu_torch.models.graphed import GraphedGenerate, make_graphed_generate
+    from texocr_tpu_torch.models.graphed import make_graphed_generate
 
     x = to_input(batch)
     result = {}
@@ -854,16 +872,10 @@ def graphs_phase(fa, engine, batch, profiled) -> dict:
     torch.cuda.empty_cache()
 
     # The float32 golden model through the graphs, from its float inputs.
-    class FloatInput(GraphedGenerate):
-        def _input_buffer(self, n, hw, device):
-            return torch.zeros((n, *hw, 1), device=device)
-
-        def _encode(self):
-            return self.model.decoder_cross_kv(self.model.encode(self.images))
-
     golden, io = golden_model()
     want = io["greedy_tokens"][:, 1:]
-    graphed = FloatInput(golden, want.shape[0], io["images"].shape[2:], want.shape[1], "greedy")
+    graphed = make_graphed_generate(golden, want.shape[0], io["images"].shape[2:],
+                                    want.shape[1], "greedy", float_input=True)
     graphed.images.copy_(golden_images(io))
     fa.flash_attention.launches = 0
     graphed.encode()
@@ -1696,29 +1708,75 @@ def http_phase(fa, rng) -> dict:
 
 
 def eval_phase(fa, rng) -> dict:
-    """Phase 13: test_model on a pickled split of two full batches."""
+    """Phase 13: test_model through the CUDA graphs on a pickled split of two
+    full batches, greedy and beam 5 (see the module docstring)."""
     from texocr_tpu_torch.data.dataset import ImageDataset, create_dataloader
-    from texocr_tpu_torch.evaluation.evaluate import test_model
+    from texocr_tpu_torch.evaluation.evaluate import graph_engines, test_model
     from texocr_tpu_torch.evaluation.metrics import batch_acc, edit_similarity, exact_match_rate
+    from texocr_tpu_torch.models import generate
 
     engine = flagship_engine()
+    model = engine.model
     config = {"batch_size": EVAL_BATCH, "seq_pad_multiple": 32, "seed": 42}
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = write_split(tmp, "test", [((160, 1008), 2 * EVAL_BATCH)], rng)
         test_set = ImageDataset.load(path)
+        loader = create_dataloader(test_set, config)
+        batches = []
+        for ids in loader.sampler:
+            images, labels = loader.collate([test_set[i] for i in ids])
+            u8 = np.stack([test_set.images[i] for i in ids])[..., None]
+            batches.append((images, labels, u8))
         for mode in ("greedy", "beam"):
+            timed = {"keys": [], "capture_s": [], "graph_s": []}
+            build = graph_engines(model)
+
+            def factory(batch, canvas, max_len, mode_, beam_size):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                graphed = build(batch, canvas, max_len, mode_, beam_size)
+                torch.cuda.synchronize()
+                timed["capture_s"].append(time.perf_counter() - t0)
+                timed["keys"].append([batch, *canvas, max_len, mode_, beam_size])
+
+                def replay(images):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    tokens = graphed(images)
+                    torch.cuda.synchronize()
+                    timed["graph_s"].append(time.perf_counter() - t1)
+                    return tokens
+
+                return replay
+
+            pairs = os.path.join(tmp, f"pairs_{mode}.jsonl")
             fa.flash_attention.launches = 0
             t0 = time.perf_counter()
-            got = test_model(test_set, engine.model, config, max_len=EVAL_MAX_LEN, verbose=False,
-                             decode_mode=mode, beam_size=BEAM)
+            got = test_model(test_set, model, config, max_len=EVAL_MAX_LEN, verbose=False,
+                             decode_mode=mode, beam_size=BEAM, pairs_out=pairs,
+                             engine_factory=factory)
             seconds = time.perf_counter() - t0
-            launches = expect_launches(fa, got["batches"], f"eval {mode}")
-            loader = create_dataloader(test_set, config)
+            # Each key's capture runs one eager encode first (its warm-up).
+            encodes = got["batches"] + len(timed["keys"])
+            launches = expect_launches(fa, encodes, f"eval {mode}")
+
+            # The same collated float batches through the eager generate.
+            with open(pairs) as f:
+                written = [json.loads(line)["pred"] for line in f]
+            eager_s, eager_rows = [], []
+            for images, _, _ in batches:
+                x = torch.from_numpy(images).cuda()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                pred = generate(model, x, max_len=EVAL_MAX_LEN, mode=mode, beam_size=BEAM)
+                torch.cuda.synchronize()
+                eager_s.append(time.perf_counter() - t1)
+                eager_rows += [[int(t) for t in row if t != 999] for row in pred.cpu().numpy()]
+            same = written == eager_rows
+
             accs, ems, sims = [], [], []
-            for ids in loader.sampler:
-                _, labels = loader.collate([test_set[i] for i in ids])
-                u8 = np.stack([test_set.images[i] for i in ids])[..., None]
+            for _, labels, u8 in batches:
                 pred = engine.generate_batch(u8, max_len=EVAL_MAX_LEN, mode=mode,
                                              beam_size=BEAM).cpu().numpy()
                 target = labels[:, 1:]
@@ -1727,14 +1785,25 @@ def eval_phase(fa, rng) -> dict:
                 sims.append(edit_similarity(pred, target, 999))
             want = {"token_acc": float(np.mean(accs)), "exact_match": float(np.mean(ems)),
                     "edit_similarity": float(np.mean(sims)), "batches": len(accs)}
-            ok = got == want and got["batches"] == 2
-            log(f"[eval] test_model {mode}: {got} in {seconds:.1f} s; from generate_batch on the "
-                f"same batches {want}; flash launches {launches} for {got['batches']} encodes "
-                f"{'ok' if ok else 'FAIL'}")
+            ok = got == want and got["batches"] == 2 and same
+            gain = float(np.mean(eager_s)) - float(np.mean(timed["graph_s"]))
+            wins_from = int(np.floor(timed["capture_s"][0] / gain)) + 1 if gain > 0 else None
+            log(f"[eval] test_model {mode} through the graphs: {got} in {seconds:.1f} s; from "
+                f"generate_batch on the same batches {want}; pairs_out tokens "
+                f"{'bit-equal to' if same else 'DIFFER FROM'} the eager generate's; flash "
+                f"launches {launches} for {encodes} encodes ({got['batches']} replays, "
+                f"{len(timed['keys'])} capture warm-ups) {'ok' if ok else 'FAIL'}")
+            log(f"[eval] {mode}: keys {timed['keys']}; first key's capture "
+                f"{timed['capture_s'][0]:.2f} s; wall s per batch, graphs after capture "
+                f"{[round(t, 4) for t in timed['graph_s']]} against eager "
+                f"{[round(t, 4) for t in eager_s]} on the same batches; the graphs win from "
+                f"{wins_from} batches of a key on")
             if not ok:
-                raise AssertionError(f"test_model's {mode} metrics differ from generate_batch's")
-            out[mode] = {**got, "seconds": seconds, "launches": launches,
-                         "encodes": got["batches"]}
+                raise AssertionError(f"test_model's {mode} decode through the graphs differs")
+            out[mode] = {**got, "seconds": seconds, "launches": launches, "encodes": encodes,
+                         "keys": timed["keys"], "capture_s": timed["capture_s"],
+                         "graph_s": timed["graph_s"], "eager_s": eager_s,
+                         "graphs_win_from_batches": wins_from}
     return out
 
 
@@ -2322,12 +2391,12 @@ def parallel_batch(seed, n):
     return BatchCollator(999, 998, 997, seq_pad_multiple=32)(batch)
 
 
-def flagship_model(dtype, mesh=None):
+def flagship_model(dtype, mesh=None, **overrides):
     from texocr_tpu_torch.config import FLAGSHIP, ModelConfig
     from texocr_tpu_torch.models import OCRModel
 
-    return OCRModel(ModelConfig.from_dict(dict(FLAGSHIP, dtype=dtype)), device="cuda", seed=0,
-                    mesh=mesh)
+    return OCRModel(ModelConfig.from_dict(dict(FLAGSHIP, dtype=dtype, **overrides)),
+                    device="cuda", seed=0, mesh=mesh)
 
 
 def parallel_steps(axis, sharded, logdir=None) -> dict:
@@ -2368,28 +2437,41 @@ def parallel_steps(axis, sharded, logdir=None) -> dict:
     return out
 
 
-def parallel_decode(mesh=None) -> tuple:
-    """Float32 greedy decode of PARALLEL_DECODE's full canvases (one process,
-    or the whole batch under ``mesh``): (tokens, synchronised seconds, flash
-    launches)."""
-    from texocr_tpu_torch.models.generate import mesh_greedy_decode
+def parallel_decode(mesh=None) -> dict:
+    """Float32 mesh_generate of PARALLEL_DECODE's full canvases (one process,
+    or the whole batch under ``mesh``) in each of PARALLEL_DECODE_MODES
+    ("int8": greedy with int8 cross and self caches; sampling from a
+    generator seeded with PARALLEL_SAMPLE_SEED): per mode (tokens,
+    synchronised seconds, flash launches)."""
+    from texocr_tpu_torch.models.generate import mesh_generate
     from texocr_tpu_torch.ops import flash_attention as fa
 
     n, steps = PARALLEL_DECODE
-    model = flagship_model("float32", mesh)
     images = torch.from_numpy(parallel_batch(99, n)[0]).cuda()
-    fa.flash_attention.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tokens = mesh_greedy_decode(model, images, mesh, max_len=steps)
-    torch.cuda.synchronize()
-    return tokens.cpu().numpy(), time.perf_counter() - t0, fa.flash_attention.launches
+    models = {"plain": flagship_model("float32", mesh),
+              "int8": flagship_model("float32", mesh, kv_quant="int8", self_kv_quant="int8")}
+    out = {}
+    for mode in PARALLEL_DECODE_MODES:
+        model = models["int8" if mode == "int8" else "plain"]
+        gen = torch.Generator(device="cuda").manual_seed(PARALLEL_SAMPLE_SEED)
+        fa.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = mesh_generate(model, images, mesh, max_len=steps,
+                               mode="greedy" if mode == "int8" else mode, generator=gen,
+                               temp=0.3, beam_size=BEAM)
+        torch.cuda.synchronize()
+        out[mode] = (tokens.cpu().numpy(), time.perf_counter() - t0,
+                     fa.flash_attention.launches)
+    del models
+    torch.cuda.empty_cache()
+    return out
 
 
 def parallel_rank(logdir) -> dict:
     """Phase 16b on one of two ranks sharing cuda:0 over gloo: {data: 2} and
     {model: 2} training steps, the kernel at this rank's shapes against its
-    plain version, and the float32 decode under {model: 2}."""
+    plain version, and the float32 decodes under {model: 2} and {data: 2}."""
     import torch.distributed as dist
 
     from texocr_tpu_torch.ops import flash_attention as fa
@@ -2403,12 +2485,13 @@ def parallel_rank(logdir) -> dict:
     for axis in PARALLEL_BATCHES:
         out[axis] = parallel_steps(axis, True, logdir)
         dist.barrier()
-    for b, h, n, dtype in RANK_SHAPES[:3]:
+    for b, h, n, dtype in RANK_SHAPES[:4]:
         q, k, v = (split_heads(gen, b, h, n, 64, dtype) for _ in range(3))
         _, _, err, ok, note = hold_kernel(fa, q, k, v, 64 ** -0.5)
         out["kernels"].append({"shape": [b, h, n, 64], "dtype": str(dtype)[6:], "ok": ok,
                                "max_abs_err": err, "note": note})
-    out["decode"] = parallel_decode(create_mesh({"model": 2}, device="cuda"))
+    out["decode"] = {axis: parallel_decode(create_mesh({axis: 2}, device="cuda"))
+                     for axis in ("model", "data")}
     return out
 
 
@@ -2426,7 +2509,7 @@ def parallel_phase(fa, trained) -> dict:
 
     t0 = time.perf_counter()
     single = {axis: parallel_steps(axis, False) for axis in PARALLEL_BATCHES}
-    single_tokens, single_decode_s, _ = parallel_decode()
+    single_decode = parallel_decode()
     with tempfile.TemporaryDirectory() as tmp:
         ranks = spawn(parallel_rank, 2, (tmp,), store_dir=tmp)
     failed = []
@@ -2451,14 +2534,16 @@ def parallel_phase(fa, trained) -> dict:
                 f"split-head, kernel vs plain: {row['note']} {'ok' if row['ok'] else 'FAIL'}")
             if not row["ok"]:
                 failed.append(f"kernel {row['shape']} rank {rank}")
-        tokens, decode_s, launches = r["decode"]
-        same = np.array_equal(tokens, single_tokens)
-        log(f"[parallel] (b) rank {rank}: float32 greedy decode of {PARALLEL_DECODE[0]} full "
-            f"canvases x {PARALLEL_DECODE[1]} steps under {{model: 2}}: tokens "
-            f"{'equal to' if same else 'DIFFER from'} one process's; {decode_s:.2f} s (one "
-            f"process: {single_decode_s:.2f} s); flash launches {launches}")
-        if not (same and launches == N_LAYERS):
-            failed.append(f"decode rank {rank}")
+        for axis, decodes in r["decode"].items():
+            for mode, (tokens, decode_s, launches) in decodes.items():
+                want, want_s, _ = single_decode[mode]
+                same = np.array_equal(tokens, want)
+                log(f"[parallel] (b) rank {rank}: float32 {mode} decode of {PARALLEL_DECODE[0]} "
+                    f"full canvases x {PARALLEL_DECODE[1]} steps under {{{axis}: 2}}: tokens "
+                    f"{'equal to' if same else 'DIFFER from'} one process's; {decode_s:.2f} s "
+                    f"(one process: {want_s:.2f} s); flash launches {launches} for 1 encode")
+                if not (same and launches == N_LAYERS):
+                    failed.append(f"{mode} decode {axis} rank {rank}")
     t["b"] = time.perf_counter() - t0
     if failed:
         raise AssertionError(f"phase 16b failed: {failed}")
@@ -2475,7 +2560,9 @@ def parallel_phase(fa, trained) -> dict:
         "launches": {"a": world1["launches"],
                      **{f"b {axis} rank {i}": sum(r[axis]["launches"])
                         for i, r in enumerate(ranks) for axis in PARALLEL_BATCHES},
-                     **{f"b decode rank {i}": r["decode"][2] for i, r in enumerate(ranks)}},
+                     **{f"b decode {axis} {mode} rank {i}": d[2]
+                        for i, r in enumerate(ranks) for axis, decodes in r["decode"].items()
+                        for mode, d in decodes.items()}},
         "seconds": t}
 
 

@@ -1,10 +1,15 @@
 """The port's evaluation against the JAX package: the metric functions on
 random arrays, ``clamp_to_pos_table``, ``test_model`` greedy and beam on one
 pickled tiny test split (the same metrics), ``single_prediction``, and the
-evaluation CLI on the CPU."""
+evaluation CLI on the CPU. Then ``test_model``'s engine cache, without a
+device: a stub factory whose engines run the eager ``generate``, keyed per
+batch shape, mode, beam width and max_len, and ``GraphCache``'s eviction.
+Metrics are compared exactly."""
 
+import gc
 import json
 import os
+import weakref
 
 import numpy as np
 import pytest
@@ -153,3 +158,73 @@ def test_evaluation_cli_runs_on_the_cpu(split, tmp_path):
     assert eval_cli.parse_args([]).device == "cuda"
     with pytest.raises(SystemExit):
         eval_cli.parse_args(["--kv_quant", "int4"])
+
+
+class StubEngine:
+    """A stand-in for a CUDA-graph engine: the eager decode of its key,
+    checking the input's type and shape as ``GraphedGenerate`` does."""
+
+    def __init__(self, model, batch, canvas, max_len, mode, beam_size):
+        self.model, self.shape = model, (batch, *canvas, 1)
+        self.args = dict(max_len=max_len, mode=mode, beam_size=beam_size)
+        self.calls = 0
+
+    def __call__(self, images):
+        assert images.dtype == torch.float32 and tuple(images.shape) == self.shape
+        self.calls += 1
+        return port_eval.generate(self.model, images, **self.args)
+
+
+@pytest.mark.parametrize("decode_mode", ["greedy", "beam"])
+def test_test_model_keys_one_engine_per_batch_shape(decode_mode, tmp_path):
+    """Two full batches and a smaller last one of (32, 64), and one of
+    (16, 64): three keys, each built once, the same metrics and pairs as the
+    eager decode, and no engine left once ``test_model`` returns."""
+    rng = np.random.default_rng(3)
+    images = [np.where(rng.random(hw) < 0.1, 0, 255).astype(np.uint8)
+              for hw in [(32, 64)] * 5 + [(16, 64)] * 2]
+    tokens = [rng.integers(0, 997, int(rng.integers(3, 9))).tolist() for _ in images]
+    path = str(tmp_path / "testset.pkl")
+    ImageDataset.from_arrays(images, tokens).save(path)
+    cfg = dict(_config(), keep_small=True)
+    model = OCRModel(ModelConfig.from_dict(cfg), device="cpu", seed=4)
+    built = []
+
+    def factory(batch, canvas, max_len, mode, beam_size):
+        engine = StubEngine(model, batch, canvas, max_len, mode, beam_size)
+        built.append(((batch, canvas, max_len, mode, beam_size), weakref.ref(engine)))
+        return engine
+
+    kw = dict(max_len=MAX_LEN, verbose=False, decode_mode=decode_mode, beam_size=3)
+    pairs = [str(tmp_path / f"pairs_{i}.jsonl") for i in range(2)]
+    got = port_eval.test_model(ImageDataset.load(path), model, dict(cfg), engine_factory=factory,
+                               pairs_out=pairs[0], **kw)
+    want = port_eval.test_model(ImageDataset.load(path), model, dict(cfg), pairs_out=pairs[1],
+                                **kw)
+    assert got == want and got["batches"] == 4
+    with open(pairs[0]) as a, open(pairs[1]) as b:
+        assert a.read() == b.read()
+    assert sorted(key for key, _ in built) == [
+        (1, (32, 64), MAX_LEN, decode_mode, 3), (2, (16, 64), MAX_LEN, decode_mode, 3),
+        (2, (32, 64), MAX_LEN, decode_mode, 3)]
+    gc.collect()
+    assert all(ref() is None for _, ref in built)
+
+
+def test_graph_cache_drops_the_least_recently_used_key():
+    built = []
+
+    def factory(batch, canvas, max_len, mode, beam_size):
+        built.append(canvas)
+        return lambda images: torch.zeros(batch, max_len, dtype=torch.int64)
+
+    cache = port_eval.GraphCache(factory, max_keys=2)
+    for h in (8, 16, 8, 24, 8, 16):
+        tokens = cache(torch.zeros(2, h, 64, 1), max_len=5, mode="greedy", beam_size=5)
+        assert tokens.shape == (2, 5)
+    # 8 and 16 built; 8 replayed; 24 drops 16; 8 replayed; 16 drops 24.
+    assert built == [(8, 64), (16, 64), (24, 64), (16, 64)]
+    assert [k[0][1] for k in cache.engines] == [8, 16]
+    assert [k[0][1] for k in cache.keys] == [8, 16, 24, 16]
+    cache.close()
+    assert not cache.engines

@@ -5,7 +5,8 @@ training path on a pickled dataset, its data path (tokenizer encode, train
 and CLI, split, the latex render chain, prune, pickle, directory datasets
 eager and lazy into training), chip_smoke.py and tools/flash_kernel_ab.py
 need neither PIL, PyYAML nor regex, none of which a port module imports at
-module level."""
+module level; nor does any port module import msgpack (the card's machine
+has none: the port reads flax's msgpack with the standard library)."""
 
 import os
 import re
@@ -21,7 +22,7 @@ _BLOCKER = textwrap.dedent(
     import importlib, importlib.util, pkgutil, sys
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "texocr_tpu",
-               "PIL", "yaml", "regex"}
+               "PIL", "yaml", "regex", "msgpack"}
 
     class Blocker:
         # Compares the exact top-level name: texocr_tpu_torch starts with

@@ -11,7 +11,7 @@ import torch.distributed as dist
 
 from texocr_tpu_torch.config import ModelConfig
 from texocr_tpu_torch.models import OCRModel
-from texocr_tpu_torch.models.generate import mesh_greedy_decode
+from texocr_tpu_torch.models.generate import mesh_generate, mesh_greedy_decode
 from texocr_tpu_torch.parallel.mesh import create_mesh
 from texocr_tpu_torch.parallel.sharding import batch_rows, gather_state_dict, shard_state_dict
 from texocr_tpu_torch.training.device_data import make_chunk_train_step
@@ -55,6 +55,33 @@ def greedy(spec, config, weights, images, max_len):
     """``mesh_greedy_decode`` of all of ``images`` on ``spec``'s mesh."""
     mesh, model = _model(spec, config, weights)
     return mesh_greedy_decode(model, torch.from_numpy(images), mesh, max_len=max_len).numpy()
+
+
+def decode(spec, config, weights, images, max_len, mode, seed=0, beam_size=3):
+    """``mesh_generate`` of all of ``images`` in ``mode`` on ``spec``'s mesh
+    (sampling from a generator seeded with ``seed`` on every rank); a
+    ``ValueError``'s message in place of the tokens."""
+    mesh, model = _model(spec, config, weights)
+    generator = torch.Generator().manual_seed(seed)
+    try:
+        tokens = mesh_generate(model, torch.from_numpy(images), mesh, max_len=max_len,
+                               mode=mode, generator=generator, beam_size=beam_size)
+    except ValueError as e:
+        return str(e)
+    return tokens.numpy()
+
+
+def graphs(spec, config, weights):
+    """The error ``make_graphed_generate`` raises on ``spec``'s mesh, as
+    (type name, message)."""
+    from texocr_tpu_torch.models.graphed import make_graphed_generate
+
+    _, model = _model(spec, config, weights)
+    try:
+        make_graphed_generate(model, 1, (32, 64), 4)
+    except (NotImplementedError, ValueError) as e:
+        return type(e).__name__, str(e)
+    return None
 
 
 def world_program(runs):

@@ -10,6 +10,7 @@ largest; tokens exact. The JAX encode runs the Pallas kernel in interpret
 mode, the port's the kernel's plain version (CPU tensors).
 """
 
+import copy
 import dataclasses
 import json
 
@@ -44,7 +45,11 @@ from texocr_tpu_torch.serving import TexOCR
 from texocr_tpu_torch.tokenizer import DEFAULT_VOCAB_PATH
 from texocr_tpu_torch.training.losses import sequence_ce_loss
 from texocr_tpu_torch.training.optimizers import get_optimizer
-from texocr_tpu_torch.training.train_step import create_train_state, make_train_step
+from texocr_tpu_torch.training.train_step import (
+    create_train_state,
+    make_train_step,
+    step_generator,
+)
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -223,10 +228,11 @@ def test_no_cross_gradients_match_jax_grad():
 
 @pytest.mark.parametrize("name", ["Adam", "AdamW"])
 def test_no_cross_weight_decay_leaves_the_encoder_where_jax_decays_it(name):
-    """The difference ROADMAP Queue 3 records: one train step with weight
-    decay. JAX's optimizer decays the unread encoder's parameters (their
-    gradients are zeros there); the port's skips them (their gradients are
-    None), so they stay bit-equal. The decoder's step agrees with JAX's."""
+    """One train step with weight decay leaves the unread encoder where
+    JAX's step puts it. JAX's gradients of the encoder are zeros and its
+    optimizer decays them; the port's are None after the backward, and
+    ``Optimizer.step`` makes them zeros, so its optimizer decays them too.
+    The whole model, encoder included, agrees with JAX's step."""
     jax_model, params, _ = _pair("no_cross")
     images, targets = _batch(11)
     args = {"lr": 1e-3, "weight_decay": 0.1}
@@ -247,16 +253,41 @@ def test_no_cross_weight_decay_leaves_the_encoder_where_jax_decays_it(name):
     got = make_train_step()(port_state, torch.from_numpy(images), torch.from_numpy(targets))
     np.testing.assert_allclose(float(got["loss"]), float(metrics["loss"]), rtol=1e-5)
     after = model.state_dict()
+    moved = 0
     for key, value in after.items():
-        if key.startswith("encoder."):
-            assert torch.equal(value, before[key]), key
-            if key != "encoder.cls_token" and before[key].abs().max() > 0:
-                assert not torch.equal(want[key], before[key]), key
-        else:
-            # Adam's first step is lr * g / (|g| + eps): 5% of one step, as
-            # gradients summed in another order move it.
-            np.testing.assert_allclose(value.numpy(), want[key].numpy(), rtol=0,
-                                       atol=0.05 * args["lr"], err_msg=key)
+        # Adam's first step is lr * g / (|g| + eps): 5% of one step, as
+        # gradients summed in another order move it.
+        np.testing.assert_allclose(value.numpy(), want[key].numpy(), rtol=0,
+                                   atol=0.05 * args["lr"], err_msg=key)
+        if key.startswith("encoder.") and not torch.equal(value, before[key]):
+            moved += 1
+    # Decay moved every encoder tensor that holds a nonzero value.
+    assert moved == sum(1 for k, v in before.items()
+                        if k.startswith("encoder.") and v.abs().max() > 0)
+
+
+@pytest.mark.parametrize("name", ["Adam", "AdamW"])
+def test_cross_attend_train_step_is_the_bare_optimizers_bit_for_bit(name):
+    """The flagship path (``cross_attend: true``): every parameter has a
+    gradient after the backward, so the zeros ``Optimizer.step`` gives a
+    parameter without one change nothing. The step equals, bit for bit,
+    the same loss's backward followed by ``torch.optim``'s own step."""
+    images, targets = (torch.from_numpy(x) for x in _batch(12))
+    args = {"lr": 1e-3, "weight_decay": 0.1}
+    model = OCRModel(ModelConfig.from_dict(dict(TINY_CONFIG, use_flash_attention=True)),
+                     device="cpu", seed=3)
+    bare = copy.deepcopy(model)
+    state = create_train_state(model, get_optimizer(name, args, model.parameters()), seed=0)
+    make_train_step()(state, images, targets)
+
+    logits, labels = bare(images, targets, generator=step_generator(0, 0, "cpu"))
+    sequence_ce_loss(logits, labels, pad_token=PAD, mask_pad=True).backward()
+    assert all(p.grad is not None for p in bare.parameters())
+    optim = torch.optim.Adam if name == "Adam" else torch.optim.AdamW
+    optim(bare.parameters(), **args).step()
+    want = bare.state_dict()
+    for key, value in model.state_dict().items():
+        assert torch.equal(value, want[key]), key
 
 
 def test_jax_no_cross_decoder_cannot_decode():

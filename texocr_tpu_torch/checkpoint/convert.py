@@ -9,18 +9,30 @@ from (in, out) to (out, in), conv kernels from HWIO to OIHW, the grey patch
 embed's (p * p * 1, D) kernel, ordered (py, px, c), to the (D, 1, p, p)
 Conv2d weight, and the shared LayerNorm and the ``block``/``block_list``
 duplicates are written at every key the reference has.
+
+``load_jax_params`` reads the params of a JAX training run from the
+``params_cache.msgpack`` that the JAX package's ``load_params_fast`` keeps in
+a ``checkpoint_e*`` directory (flax's msgpack, read by ``checkpoint/msgpack.py``
+without the ``msgpack`` package). The orbax (OCDBT) files beside it stay
+unread: they need tensorstore.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import re
 from typing import Dict
 
 import numpy as np
 import torch
 
+from texocr_tpu_torch.checkpoint import msgpack
+
 POS_EMBED_KEY = "decoder.net.pos_embedding.embedding.weight"
+
+#: The params-only cache the JAX package writes in a checkpoint directory.
+JAX_PARAMS_CACHE = "params_cache.msgpack"
 
 
 def _linear(w) -> np.ndarray:
@@ -141,3 +153,29 @@ def load_state(path: str) -> Dict[str, torch.Tensor]:
         blob = torch.load(path, map_location="cpu", weights_only=True)
         return dict(blob.get("model_state_dict", blob))
     raise ValueError(f"unknown checkpoint format: {path} (expected .pth, .pt or .npz)")
+
+
+def _host_leaves(tree):
+    """``tree`` with bfloat16 tensor leaves as float32 numpy arrays (exact)."""
+    if isinstance(tree, dict):
+        return {k: _host_leaves(v) for k, v in tree.items()}
+    return tree.float().numpy() if torch.is_tensor(tree) else tree
+
+
+def load_jax_params(path: str) -> Dict[str, torch.Tensor]:
+    """``state_dict_from_jax`` of a JAX training run's params: ``path`` is a
+    JAX ``checkpoint_e*`` directory that holds ``params_cache.msgpack``, or
+    that file. A directory without it raises ``ValueError``, which says how
+    to write it."""
+    path = str(path)
+    if os.path.isdir(path):
+        cache = os.path.join(path, JAX_PARAMS_CACHE)
+        if not os.path.exists(cache):
+            raise ValueError(
+                f"{path} holds no {JAX_PARAMS_CACHE}: the port reads a JAX checkpoint's params "
+                "from that file, not from its orbax files (they need tensorstore). Write it "
+                "on a machine with JAX: python -c \"from texocr_tpu.checkpoint.orbax_io import "
+                f"load_params_fast; load_params_fast('{path}')\"")
+        path = cache
+    with open(path, "rb") as f:
+        return state_dict_from_jax(_host_leaves(msgpack.unpackb(f.read())))

@@ -4,9 +4,9 @@ The JAX package's cadence and directory naming (``save_dir/checkpoint_e{epoch}``
 the highest epoch is the latest), stored with ``torch.save`` as one
 ``state.pt`` in that directory and read back with
 ``torch.load(weights_only=True)``: tensors, numbers, strings and plain
-containers only. The JAX package's checkpoints are orbax directories, which
-cannot be read without orbax: carry JAX weights across with
-``convert.state_dict_from_jax`` instead.
+containers only. The JAX package's checkpoints are orbax directories; the
+port reads their params from the ``params_cache.msgpack`` beside them
+(``convert.load_jax_params``). ``load_weights`` takes any of these.
 
 Checkpoints are mesh-independent: on a process mesh the training loop saves
 the full, reference-keyed model and optimizer state gathered from the model
@@ -20,6 +20,8 @@ import os
 from typing import Dict, Optional
 
 import torch
+
+from texocr_tpu_torch.checkpoint.convert import JAX_PARAMS_CACHE, load_jax_params, load_state
 
 STATE_FILE = "state.pt"
 
@@ -93,3 +95,20 @@ def warm_start_params(restored: Dict[str, torch.Tensor],
         else:
             out[key] = t
     return out
+
+
+def load_weights(path: str) -> Dict[str, torch.Tensor]:
+    """Reference-keyed weights from any checkpoint the port reads: a state
+    dict file (``.pth``/``.pt``/``.npz``), a JAX ``params_cache.msgpack``, a
+    checkpoint directory of the port's trainer (``state.pt``) or of the JAX
+    package's (its ``params_cache.msgpack``), or a ``save_dir`` of either
+    (its latest epoch). A directory that holds none of these raises
+    ``ValueError``, as ``convert.load_jax_params`` says."""
+    path = str(path)
+    if not os.path.isdir(path):
+        return load_jax_params(path) if path.endswith(".msgpack") else load_state(path)
+    if not any(os.path.exists(os.path.join(path, f)) for f in (STATE_FILE, JAX_PARAMS_CACHE)):
+        path = latest_checkpoint(path) or path
+    if os.path.exists(os.path.join(path, STATE_FILE)):
+        return load_checkpoint(path)["model"]
+    return load_jax_params(path)

@@ -4,7 +4,11 @@
         [--checkpoint path] [--max_len 276] [--decode greedy|beam] [--device cuda]
 
 ``-d`` holds ``test/testset.pkl`` as either package's ``ImageDataset.save``
-writes it.
+writes it. ``--checkpoint`` takes what ``checkpoint.load_weights`` reads: a
+reference state dict, the port's checkpoints, or a JAX training run's
+``checkpoint_e*`` directory holding the ``params_cache.msgpack`` that the
+JAX package's ``load_params_fast`` writes. On a CUDA device every batch
+decodes through CUDA graphs (``evaluate.test_model``).
 """
 
 from __future__ import annotations
@@ -12,8 +16,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from texocr_tpu_torch.checkpoint.convert import load_state
-from texocr_tpu_torch.checkpoint.io import STATE_FILE, latest_checkpoint, load_checkpoint
+from texocr_tpu_torch.checkpoint.io import load_weights
 from texocr_tpu_torch.config import ModelConfig, load_config
 from texocr_tpu_torch.data.dataset import ImageDataset
 from texocr_tpu_torch.evaluation.evaluate import clamp_to_pos_table, test_model
@@ -22,19 +25,14 @@ from texocr_tpu_torch.utils import pad_to_multiple
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(
-        description="Evaluate the TexOCR model with the PyTorch port.",
-        epilog="--checkpoint takes a reference state dict (.pth/.pt), an .npz, or a "
-               "checkpoint directory the port's trainer wrote (checkpoint_e*/state.pt, or "
-               "its save_dir: the latest epoch). The JAX package's orbax directories "
-               "cannot be read without orbax: carry JAX weights across with "
-               "texocr_tpu_torch.checkpoint.state_dict_from_jax.",
-    )
+    p = argparse.ArgumentParser(description="Evaluate the TexOCR model with the PyTorch port.")
     p.add_argument("-d", "--data_dir", type=str, default="data")
     p.add_argument("--config", type=str, default="config/config.yml",
                    help="configuration file (.yml, or .json without PyYAML)")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help=".pth/.pt/.npz state dict or a port checkpoint directory")
+                   help=".pth/.pt/.npz state dict, a checkpoint directory of the port's "
+                        "trainer or of a JAX run (with its params_cache.msgpack), or the "
+                        "save_dir of either (its latest epoch)")
     p.add_argument("--max_len", type=int, default=276)
     p.add_argument("--max_batches", type=int, default=None)
     p.add_argument("--decode", type=str, default="greedy", choices=("greedy", "beam"))
@@ -55,19 +53,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def read_state(path: str):
-    """A reference-keyed state dict from a file or a port checkpoint directory."""
-    if os.path.isdir(path):
-        if not os.path.exists(os.path.join(path, STATE_FILE)):
-            latest = latest_checkpoint(path)
-            if latest is None:
-                raise ValueError(f"{path} holds no {STATE_FILE} and no checkpoint_e* "
-                                 "directory (orbax directories cannot be read)")
-            path = latest
-        return load_checkpoint(path)["model"]
-    return load_state(path)
-
-
 def main(args: argparse.Namespace) -> dict:
     config = load_config(args.config)
     if args.kv_quant is not None:
@@ -84,7 +69,7 @@ def main(args: argparse.Namespace) -> dict:
     config["vocab_size"] = test_set.tokenizer.vocab_size
     state = None
     if args.checkpoint:
-        state = read_state(args.checkpoint)
+        state = load_weights(args.checkpoint)
         args.max_len = clamp_to_pos_table(state, config, args.max_len)
     else:
         print("WARNING: no checkpoint given; evaluating a random init.")

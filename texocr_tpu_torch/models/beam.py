@@ -11,6 +11,11 @@ package leaves its rows in place and selects them through an ancestry one-hot,
 which gives the same numbers. The cross-attention K/V stay at (B, ...), shared
 by an image's beams.
 
+On a tensor-parallel model the caches hold this rank's heads and
+``reorder_cache`` moves their rows alike; the log-softmax and the top-k run
+on the whole logits, identical on every model rank, so every rank picks the
+same parents and its caches stay in step with the others'.
+
 ``sequence_logprob`` scores given tokens by the same rule, teacher-forced or
 through the decode step's cache: a beam's score is its tokens' log-prob.
 
@@ -138,7 +143,6 @@ def beam_decode(
     log-prob sum). ``length_penalty`` alpha ranks beams by
     score / ((5 + len) / 6) ** alpha (GNMT); 0 ranks by the raw sum.
     ``enc_mask``: (B, Nk) bool, False at padded encoder positions."""
-    model.check_unsharded("beam decode")
     state = BeamState(model, model.decoder_cross_kv(enc), bos_token=bos_token,
                       eos_token=eos_token, pad_token=pad_token, max_len=max_len,
                       beam_size=beam_size, enc_mask=enc_mask)

@@ -18,15 +18,23 @@ to the host. ``decode_chunks`` is the loop between chunks. The eager entry
 points below run the chunks as they are; ``graphed.make_graphed_generate``
 captures each chunk in a CUDA graph and replays it.
 
-Under a mesh (a model built with ``mesh=``), ``greedy_decode`` runs on the
-model's local heads, its cached step reducing over the model group, and
-``mesh_greedy_decode`` splits a batch's rows over the data group and gathers
-the tokens back. Sampled and beam decode, and the CUDA-graph engine, take no
-tensor-parallel model (the JAX wrapper never shards either) and raise.
+Under a mesh (a model built with ``mesh=``) every decode runs on the
+model's local heads, its cached step reducing over the model group; the
+logits come out whole and identical on every model rank, so the picks (an
+argmax, a draw, beam's top-k) and the done flags are the same there and the
+model ranks step together. A decode entry point takes this data rank's rows
+of the batch, as training does. ``mesh_generate`` splits a whole batch's
+rows over the data group and gathers the tokens back, in any mode. Only the
+CUDA-graph engine refuses a tensor-parallel model (``graphed.py``).
 
 Sampling draws with the Gumbel-max trick (argmax of logits / temp plus Gumbel
 noise from the caller's ``torch.Generator``): a draw from the same
 categorical distribution as ``jax.random.categorical``, not the same draws.
+Each step draws the noise of the global batch, data rank after data rank,
+and takes this rank's rows: with the same generator seed on every rank, a
+sampled decode under any mesh gives one process's tokens (JAX's draws do not
+depend on the sharding either). Without a data group that noise is the
+whole batch's, as it always was.
 """
 
 from __future__ import annotations
@@ -44,11 +52,12 @@ from texocr_tpu_torch.models.attention import (
 from texocr_tpu_torch.models.beam import BeamState
 from texocr_tpu_torch.models.ocr_model import OCRModel
 from texocr_tpu_torch.parallel.layers import gather_rows
+from texocr_tpu_torch.parallel.mesh import NO_AXIS, MeshAxis
 from texocr_tpu_torch.parallel.sharding import batch_rows
 from texocr_tpu_torch.utils import topk_filter
 
 __all__ = ["DECODE_CHUNK", "DecodeState", "decode_state", "greedy_decode",
-           "mesh_greedy_decode", "sampled_decode", "generate"]
+           "mesh_generate", "mesh_greedy_decode", "sampled_decode", "generate"]
 
 DECODE_MODES = ("greedy", "sample", "beam")
 
@@ -117,14 +126,20 @@ def argmax(logits: torch.Tensor) -> torch.Tensor:
     return logits.argmax(dim=-1)
 
 
-def sampler(generator: torch.Generator, temp: float, topk_threshold: float = 0.9) -> Callable:
+def sampler(generator: torch.Generator, temp: float, topk_threshold: float = 0.9,
+            data: MeshAxis = NO_AXIS) -> Callable:
     """The reference's sampling: ``topk_filter`` (k = 99 of 1000), then a
-    categorical draw at ``temp``, its noise from ``generator``."""
+    categorical draw at ``temp``, its noise from ``generator``. The logits
+    hold data rank ``data.rank``'s block of rows: the noise is drawn for the
+    whole batch and this block's rows kept."""
     tiny = torch.finfo(torch.float32).tiny
 
     def pick(logits):
-        u = torch.rand(logits.shape, generator=generator, device=logits.device).clamp_min(tiny)
-        gumbel = -torch.log(-torch.log(u))
+        rows, vocab = logits.shape
+        u = torch.rand((rows * data.size, vocab), generator=generator, device=logits.device)
+        if data.size > 1:
+            u = u[data.rank * rows: (data.rank + 1) * rows]
+        gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
         return (topk_filter(logits, topk_threshold) / temp + gumbel).argmax(dim=-1)
 
     return pick
@@ -153,20 +168,30 @@ def greedy_decode(
 
 
 @torch.inference_mode()
+def mesh_generate(model: OCRModel, images: torch.Tensor, mesh, *, max_len: int,
+                  mode: str = "greedy", generator: Optional[torch.Generator] = None,
+                  temp: float = 0.3, beam_size: int = 5) -> torch.Tensor:
+    """``generate`` of a whole batch under ``model``'s mesh, the counterpart
+    of the JAX package's jitted decode on a batch sharded over 'data' and
+    parameters over 'model': this data rank encodes and decodes its rows of
+    ``images`` (B, H, W, 1) with its model group, and every rank returns all
+    B rows of tokens (B, max_len). Beam search keeps an image's
+    ``beam_size`` rows on the rank that holds the image. ``generator``
+    (sampling) must be seeded alike on every rank; the tokens then equal one
+    process's. A batch the data axis does not divide raises ``ValueError``,
+    as ``batch_rows`` does."""
+    check_mode(model, mode, generator)
+    rows = batch_rows(images.shape[0], mesh)
+    cross_kv = model.decoder_cross_kv(model.encode(images[rows]))
+    tokens = _run(decode_state(model, cross_kv, max_len=max_len, mode=mode, generator=generator,
+                               temp=temp, beam_size=beam_size))
+    return gather_rows(tokens, model.data)
+
+
 def mesh_greedy_decode(model: OCRModel, images: torch.Tensor, mesh, *, max_len: int
                        ) -> torch.Tensor:
-    """Greedy decode of a whole batch under ``model``'s mesh, the
-    counterpart of the JAX package's jitted decode on a batch sharded over
-    'data' and parameters over 'model': this data rank encodes and decodes
-    its rows of ``images`` (B, H, W, 1) with its model group, and every rank
-    returns all B rows of tokens (B, max_len), with the config's BOS, EOS
-    and PAD."""
-    cfg = model.config
-    model.check_decodes()
-    rows = batch_rows(images.shape[0], mesh)
-    tokens = greedy_decode(model, model.encode(images[rows]), bos_token=cfg.bos_token,
-                           eos_token=cfg.eos_token, pad_token=cfg.pad_token, max_len=max_len)
-    return gather_rows(tokens, model.data)
+    """``mesh_generate``'s greedy case."""
+    return mesh_generate(model, images, mesh, max_len=max_len)
 
 
 @torch.inference_mode()
@@ -186,21 +211,16 @@ def sampled_decode(
 ):
     """The reference's sampling (``sampler``), its noise from ``generator``
     (on ``enc``'s device). Returns what ``greedy_decode`` returns."""
-    model.check_unsharded("sampled decode")
     return _run(DecodeState(model, model.decoder_cross_kv(enc),
-                            sampler(generator, temp, topk_threshold), bos_token=bos_token,
-                            eos_token=eos_token, pad_token=pad_token, max_len=max_len,
-                            enc_mask=enc_mask, return_logits=return_logits))
+                            sampler(generator, temp, topk_threshold, model.data),
+                            bos_token=bos_token, eos_token=eos_token, pad_token=pad_token,
+                            max_len=max_len, enc_mask=enc_mask, return_logits=return_logits))
 
 
 def check_mode(model: OCRModel, mode: str, generator: Optional[torch.Generator]) -> None:
     """Raises ``ValueError`` for a decode that cannot run: an unknown mode,
-    sampling without a generator, or a decoder without cross-attention; and
-    ``NotImplementedError`` for sampled or beam decode on a tensor-parallel
-    model."""
+    sampling without a generator, or a decoder without cross-attention."""
     model.check_decodes()
-    if mode != "greedy":
-        model.check_unsharded(f"{mode} decode")
     if mode not in DECODE_MODES:
         raise ValueError(f"unknown decode mode: {mode!r}")
     if mode == "sample" and generator is None:
@@ -218,7 +238,7 @@ def decode_state(model: OCRModel, cross_kv, *, max_len: int, mode: str = "greedy
                   max_len=max_len)
     if mode == "beam":
         return BeamState(model, cross_kv, beam_size=beam_size, **common)
-    pick = sampler(generator, temp) if mode == "sample" else argmax
+    pick = sampler(generator, temp, data=model.data) if mode == "sample" else argmax
     return DecodeState(model, cross_kv, pick, **common)
 
 

@@ -9,7 +9,10 @@ captures the same work once per key and replays it:
 
 - an encode graph: ``1 - u8 / 255``, ``OCRModel.encode`` (its flash kernel
   launches included) and the cross-attention K/V, into the graph's own
-  output buffers;
+  output buffers. With ``float_input`` the engine takes the model's input
+  itself, (B, H, W, 1) float32 as the data loader collates it, and encodes
+  it as it is: evaluation's engine, whose tokens equal ``generate`` on the
+  loader's batch;
 - one graph per chunk (``DecodeState.run_chunk`` / ``BeamState.run_chunk``,
   chunk 0 resetting the state to BOS). The step index t and the int8 prefix
   length t0 stay Python ints, as in the eager loop, so every graph runs the
@@ -33,6 +36,10 @@ lock per key keeps its replays from overlapping. A sampled key registers its
 generator with every graph (graph-safe RNG): a replay draws what the eager
 decode draws from the generator's state at that moment, and advances it as
 the eager decode would.
+
+A tensor-parallel model raises ``NotImplementedError`` (``OCRModel.
+check_unsharded`` says why): its step's collectives would have to be
+captured, which gloo's cannot be, and NCCL needs a GPU per rank.
 """
 
 from __future__ import annotations
@@ -53,22 +60,24 @@ _CAPTURE_LOCK = threading.Lock()
 
 class GraphedGenerate:
     """``(B, H, W, 1) uint8 canvases -> (B, max_len) int64 tokens`` on the
-    model's CUDA device, from graphs captured at construction (see
-    ``make_graphed_generate``). ``encode()`` and ``decode()`` replay the two
-    halves on the canvases last copied in, for timing them apart."""
+    model's CUDA device, or with ``float_input`` float32 model inputs, from
+    graphs captured at construction (see ``make_graphed_generate``).
+    ``encode()`` and ``decode()`` replay the two halves on the input last
+    copied in, for timing them apart."""
 
     def __init__(self, model: OCRModel, batch: int, canvas: Tuple[int, int], max_len: int,
                  mode: str, *, beam_size: int = 5, generator: Optional[torch.Generator] = None,
-                 temp: float = 0.3):
+                 temp: float = 0.3, float_input: bool = False):
+        model.check_unsharded("the CUDA-graph decode")
         device = next(model.parameters()).device
         if device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device; the model is on {device}")
-        model.check_unsharded("the CUDA-graph decode")
         check_mode(model, mode, generator)
         self.model = model
         self.generator = generator if mode == "sample" else None
         self.decode_args = dict(max_len=max_len, mode=mode, generator=generator, temp=temp,
                                 beam_size=beam_size)
+        self.float_input = float_input
         self.images = self._input_buffer(batch, canvas, device)
         self.lock = threading.Lock()
         self._pool = torch.cuda.graph_pool_handle()
@@ -81,13 +90,17 @@ class GraphedGenerate:
                                   for c in range(self.state.n_chunks)]
 
     def _input_buffer(self, batch: int, canvas: Tuple[int, int], device) -> torch.Tensor:
-        """The static input: white uint8 canvases."""
+        """The static input: white uint8 canvases, or their float32 model
+        input (zeros)."""
+        if self.float_input:
+            return torch.zeros((batch, *canvas, 1), dtype=torch.float32, device=device)
         return torch.full((batch, *canvas, 1), 255, dtype=torch.uint8, device=device)
 
     def _encode(self):
         """The encode graph's work: the input as the model takes it, the
         encoder, the cross-attention K/V."""
-        return self.model.decoder_cross_kv(self.model.encode(1.0 - self.images.float() / 255.0))
+        x = self.images if self.float_input else 1.0 - self.images.float() / 255.0
+        return self.model.decoder_cross_kv(self.model.encode(x))
 
     def _warm_up(self) -> None:
         """Every region once, eagerly, on the capture stream; the generator
@@ -131,9 +144,10 @@ class GraphedGenerate:
 
     def __call__(self, images) -> torch.Tensor:
         images = torch.as_tensor(images)
-        if images.shape != self.images.shape or images.dtype != torch.uint8:
-            raise ValueError(f"expected uint8 canvases of shape {tuple(self.images.shape)}, "
-                             f"got {images.dtype} {tuple(images.shape)}")
+        if images.shape != self.images.shape or images.dtype != self.images.dtype:
+            raise ValueError(f"expected {self.images.dtype} inputs of shape "
+                             f"{tuple(self.images.shape)}, got {images.dtype} "
+                             f"{tuple(images.shape)}")
         with self.lock, torch.inference_mode():
             self.images.copy_(images)
             self.encode()
@@ -145,14 +159,15 @@ class GraphedGenerate:
 def make_graphed_generate(model: OCRModel, batch: int, canvas: Tuple[int, int], max_len: int,
                           mode: str = "greedy", *, beam_size: int = 5,
                           generator: Optional[torch.Generator] = None,
-                          temp: float = 0.3) -> GraphedGenerate:
+                          temp: float = 0.3, float_input: bool = False) -> GraphedGenerate:
     """``generate`` compiled for one shape: ``batch`` canvases of ``canvas``
-    (H, W) as uint8, decoded to ``max_len`` tokens in ``mode`` ("greedy",
-    "sample" at ``temp`` with ``generator``, or "beam" ``beam_size`` wide;
-    int8 caches as the model's config sets them). Captures the encode graph
-    and one graph per chunk now, and returns the callable that replays
-    them; its tokens equal ``generate``'s on ``1 - u8 / 255``. A model on the
-    CPU raises ``ValueError``: CUDA graphs need a CUDA device, and nothing
-    falls back."""
+    (H, W) as uint8 (with ``float_input``, the float32 model input),
+    decoded to ``max_len`` tokens in ``mode`` ("greedy", "sample" at
+    ``temp`` with ``generator``, or "beam" ``beam_size`` wide; int8 caches as
+    the model's config sets them). Captures the encode graph and one graph
+    per chunk now, and returns the callable that replays them; its tokens
+    equal ``generate``'s on ``1 - u8 / 255`` (on the float input itself). A
+    model on the CPU raises ``ValueError``: CUDA graphs need a CUDA device,
+    and nothing falls back."""
     return GraphedGenerate(model, batch, canvas, max_len, mode, beam_size=beam_size,
-                           generator=generator, temp=temp)
+                           generator=generator, temp=temp, float_input=float_input)

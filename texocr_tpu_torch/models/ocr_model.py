@@ -117,12 +117,17 @@ class OCRModel(nn.Module):
         self.dec.attn_layers.check_decodes()
 
     def check_unsharded(self, what: str) -> None:
-        """Raises ``NotImplementedError`` for ``what`` (sampled or beam
-        decode, the CUDA-graph engine) on a tensor-parallel model: only
-        greedy decode runs on one."""
+        """Raises ``NotImplementedError`` for ``what`` (the CUDA-graph
+        engine) on a tensor-parallel model. Its decode step all-reduces over
+        the model group, so a graph would have to capture those collectives:
+        gloo's cannot be captured, and NCCL's need a GPU per rank, which one
+        card cannot give, so such a graph could be neither run nor checked
+        here. Every eager decode mode runs on such a model."""
         if self.tp.size > 1:
-            raise NotImplementedError(f"{what} does not run on a tensor-parallel model yet; "
-                                      "greedy decode does")
+            raise NotImplementedError(
+                f"{what} does not run on a tensor-parallel model: its step all-reduces over "
+                "the model group, gloo's collectives cannot be captured in a CUDA graph, and "
+                "NCCL's need one GPU per rank; decode eagerly (generate, mesh_generate)")
 
     def decoder_init_cache(self, batch: int, max_len: int, device):
         return self.dec.attn_layers.init_cache(batch, max_len, device,

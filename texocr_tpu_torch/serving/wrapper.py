@@ -1,8 +1,9 @@
 """Inference wrapper: image -> (token ids, LaTeX string).
 
 ``TexOCR(config)`` loads the tokenizer named by ``config['tokenizer_path']``
-and a reference-keyed state dict (``config['model_path']`` as ``.pth``/``.npz``,
-or ``state_dict=``), adopting the checkpoint's decoder positional-table length;
+and a reference-keyed state dict (``config['model_path']``: whatever
+``checkpoint.load_weights`` reads, a JAX run's ``checkpoint_e*`` directory
+included; or ``state_dict=``), adopting the checkpoint's decoder positional-table length;
 without one the weights come from a generator seeded with ``config['seed']``.
 Each image goes onto a white uint8 bucket canvas (height a multiple of 16,
 width of 64, at most the configured ``img_size``), crosses to the device as
@@ -28,7 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from texocr_tpu_torch.checkpoint.convert import POS_EMBED_KEY, load_state
+from texocr_tpu_torch.checkpoint.convert import POS_EMBED_KEY
+from texocr_tpu_torch.checkpoint.io import load_weights
 from texocr_tpu_torch.config import ModelConfig, with_defaults
 from texocr_tpu_torch.models import OCRModel, generate
 from texocr_tpu_torch.models.graphed import GraphedGenerate, make_graphed_generate
@@ -43,7 +45,7 @@ class TexOCR:
         self.tokenizer = RegexBPETokenizer().load(config["tokenizer_path"])
         config["vocab_size"] = self.tokenizer.vocab_size
         if state_dict is None and config.get("model_path"):
-            state_dict = load_state(config["model_path"])
+            state_dict = load_weights(config["model_path"])
         if state_dict is not None:
             # Adopt the checkpoint's positional-table length.
             config["max_length"] = int(state_dict[POS_EMBED_KEY].shape[0])

@@ -17,6 +17,12 @@ does (no epsilon in the norm), on the device without a host sync. Under
 tensor parallelism the norm is the full gradient's: the squared norms of the
 split parameters (marked ``tensor_model_parallel``) are summed over the
 model group, and the replicated ones counted once.
+
+Every trainable parameter takes part in every step, as every leaf does in
+optax: one the forward did not read (the encoder of a decoder without
+cross-attention) has a ``None`` gradient, which ``step`` makes zeros, so
+weight decay moves it as JAX's optimizer does. The train step all-reduces
+the gradients before ``step``, so those zeros never cross the data group.
 """
 
 from __future__ import annotations
@@ -68,6 +74,10 @@ class Optimizer:
         self.optimizer.zero_grad(set_to_none=True)
 
     def step(self) -> None:
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None and p.requires_grad:
+                    p.grad = torch.zeros_like(p)
         if self.grad_clip:
             params = [p for group in self.optimizer.param_groups for p in group["params"]
                       if p.grad is not None]

@@ -1,12 +1,14 @@
-"""Helpers: LaTeX post-processing, the sampler's top-k filter and TF-SAME
-padding math."""
+"""Helpers: LaTeX post-processing, the sampler's top-k filter, TF-SAME
+padding math, and the reference's public helpers ``count_parameters``,
+``alphabetize_config`` and ``center_pad_image``."""
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Tuple
+from typing import Dict, Tuple, Union
 
+import numpy as np
 import torch
 
 
@@ -60,3 +62,33 @@ def pad_to_multiple(x: int, multiple: int) -> int:
     """Round ``x`` up to the next multiple (the render-time canvas rule: height
     to 16k, width to 64k)."""
     return ((x + multiple - 1) // multiple) * multiple
+
+
+def count_parameters(params: Union[torch.nn.Module, Dict[str, torch.Tensor]]) -> int:
+    """Total element count of a module's parameters (each shared parameter
+    once) or of a state dict's tensors (every key)."""
+    tensors = params.parameters() if isinstance(params, torch.nn.Module) else params.values()
+    return sum(t.numel() for t in tensors)
+
+
+def alphabetize_config(config: dict, path: str = "config.yml") -> dict:
+    """``config`` sorted by key, and written to ``path`` as YAML. Needs
+    PyYAML (the 'yaml' package)."""
+    try:
+        import yaml
+    except ImportError:
+        raise ImportError(f"writing the YAML config {path} needs PyYAML (the 'yaml' "
+                          "package)") from None
+    config = dict(sorted(config.items()))
+    with open(path, "w") as f:
+        yaml.dump(config, f)
+    return config
+
+
+def center_pad_image(img: np.ndarray, height: int, width: int, fill: float = 0.0) -> np.ndarray:
+    """An (H, W[, C]) array padded with ``fill`` to (height, width), centred
+    (the odd pixel at the bottom and the right): the reference's
+    ImagePadding transform."""
+    pad_h, pad_w = height - img.shape[0], width - img.shape[1]
+    pads = ((pad_h // 2, pad_h - pad_h // 2), (pad_w // 2, pad_w - pad_w // 2))
+    return np.pad(img, pads + ((0, 0),) * (img.ndim - 2), constant_values=fill)
