@@ -171,11 +171,42 @@ Phases, each fatal on failure:
      dryrun_multichip(2) on cuda:0. These are correctness phases: gloo
      stages CUDA tensors through the host and the ranks time-share one
      card, so no time here is a parallel speed.
+ 17. tools (run before 14): the data tools and the training tool they
+     chain (texocr_tpu_torch/tools/). (a) make_demo_dataset's entry points
+     raise an ImportError naming the package they miss (PIL for the bitmap
+     renders and main, matplotlib for the typeset render and main
+     --typeset) and write no file, and where the package is there render
+     onto a profile canvas (the card's machine has PIL, not matplotlib); its
+     equations (DEMO_N --realistic, seed DEMO_SEED), split writer (ink drawn
+     by the phase: (160, 1008) canvases, every 8th train row (96, 1008)) and
+     pickles build the dataset; pickle_partial_typeset on the build with
+     its last DEMO_TORN train images deleted must take exactly the rows
+     left, with the build's labels row for row. (b) One fixed batch of
+     DEMO_BATCH full canvases through the flagship from one seed without
+     and with remat: the first two steps' losses within BF16_FLOOR
+     (relative), 4 and 8 flash launches a step (the backward recomputes
+     each encoder sub-layer's forward); prints the synchronised step time,
+     peak memory and a profiled step (device time, busy share) of each. (c) demo_train on the build at the flagship's
+     full width with stage DEMO_STAGE's curriculum arguments cut to 2
+     epochs and 2 test batches (--device_data --augment --batch_size 32
+     --eval_batch_size 32 --eval_max_len 475), then again with stage W's
+     --remat --pack_bits 4 --host_val, warm-started from the first run's
+     checkpoints: fatal unless the epoch losses are finite, the training's
+     flash launches are 4 (8 with remat) a train step and 4 a val step,
+     test_model launches 4 per encode through the CUDA graphs (each replay
+     and the capture's warm-up), and the metrics file has the JAX tool's
+     keys; prints per run the steps, epoch losses and seconds, peak memory,
+     the test split's capture and replay times. (d) train_curriculum
+     --dry_run --stages A-C: 3 builds and 3 trainings through the port's
+     modules, the warm starts chained, the metrics under --results_dir.
+     (e) The bf16 kernel at DEMO_SHAPE against its plain version, and
+     timed as phase 3 times its shapes, beside the bound and the library.
  14. launched shapes: every flash launch from phase 3 on is recorded (shapes,
      type, strides, alignment, scale, causal, kv_lens) by the phase that made
-     it; each signature that phases 4-13b and 15 launched and phase 3 did not check
-     (the batcher's padded batches, the float32 checks at 2 canvases, the
-     golden model's, evaluation's captures) is held against the plain version here, on fresh
+     it; each signature that phases 4-13b and 15-17 launched and phase 3 did
+     not check (the batcher's padded batches, the float32 checks at 2
+     canvases, the golden model's, evaluation's captures, phase 17's batches
+     of 32) is held against the plain version here, on fresh
      operands of the same strides and alignment, as phase 3 holds its cases.
 Every phase that encodes asserts 4 flash launches per encode on its main
 path; a CUDA graph's replay counts the launches its capture made, and a
@@ -187,6 +218,9 @@ JSON line of per-kernel numbers, the card's name and power limit, and the last
 line {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import importlib.util
+import io
 import json
 import os
 import platform
@@ -2566,6 +2600,356 @@ def parallel_phase(fa, trained) -> dict:
         "seconds": t}
 
 
+DEMO_N = 640  # phase 17's --realistic demo build: 512 train, 96 test, 32 val rows
+DEMO_SEED = 13
+DEMO_BATCH = 32  # the curriculum's batch, for training and evaluation
+DEMO_SHAPE = (DEMO_BATCH, 8, 631, 64)  # its encoder self-attention on full canvases
+DEMO_STAGE = "D"  # the curriculum stage whose training arguments phase 17 cuts down
+DEMO_CUTS = ["--epochs", "2", "--eval_batches", "2", "--save_freq", "1", "--val_freq", "1"]
+DEMO_STAGE_W = ["--remat", "--pack_bits", "4", "--host_val"]  # stage W's knobs
+DEMO_TORN = 40  # train images deleted from the build's tail before the partial pickles
+DEMO_HOLDOUT = 64  # pickle_partial_typeset's --holdout on the torn build
+REMAT_TIMED = 8  # synchronised fixed-batch steps per remat setting
+METRICS_KEYS = {"args", "final_train_loss", "token_acc", "exact_match", "edit_similarity",
+                "batches"}  # the keys of the JAX tool's --metrics_out
+
+
+def demo_canvas(split, i):
+    """Phase 17's canvas of row ``i``: (160, 1008), but every 8th train row
+    (96, 1008), so the train split has two buckets of full batches."""
+    return (96, 1008) if split == "train" and i % 8 == 7 else (160, 1008)
+
+
+def build_demo(rng, root) -> dict:
+    """Phase 17 (a): the demo tool's renders raise ImportError naming the
+    package that is missing (PIL; matplotlib with --typeset) and its main
+    then writes nothing, or, where the packages are there, render onto a
+    profile canvas; the tool's equations, split writer (with ink the phase
+    draws) and pickles, on a DEMO_N --realistic build; then
+    pickle_partial_typeset on the build with its train tail torn."""
+    from texocr_tpu_torch.tools import make_demo_dataset as mdd
+    from texocr_tpu_torch.tools import pickle_partial_typeset
+
+    build = os.path.join(root, "demo")
+    found = {name: importlib.util.find_spec(name) is not None for name in ("PIL", "matplotlib")}
+    eq, notes = "x ^ { 2 } + \\frac { a } { b }", []
+    entries = (
+        ("render_realistic", lambda: mdd.render_realistic(eq), ("PIL",)),
+        ("render_realistic_typeset",
+         lambda: mdd.render_realistic_typeset(eq, np.random.default_rng(0)), ("matplotlib",)),
+        ("main", lambda: mdd.main(["--out", build, "--n", "8", "--realistic"]), ("PIL",)),
+        ("main --typeset", lambda: mdd.main(["--out", build, "--n", "8", "--typeset"]),
+         ("PIL", "matplotlib")),
+    )
+    for name, call, needs in entries:
+        missing = [package for package in needs if not found[package]]
+        if not missing:
+            if not name.startswith("main"):
+                img = call()
+                if not (img.dtype == np.uint8 and img.shape in mdd.REALISTIC_PROFILES):
+                    raise AssertionError(f"{name} gave {img.dtype} {img.shape}")
+                notes.append(f"{name} renders onto {img.shape}")
+            continue
+        try:
+            call()
+        except ImportError as e:
+            if missing[0] not in str(e):
+                raise AssertionError(f"{name}'s ImportError does not name {missing[0]}: {e}") from e
+        else:
+            raise AssertionError(f"make_demo_dataset's {name} ran without {missing}")
+        if os.path.exists(build):
+            raise AssertionError(f"make_demo_dataset's {name} wrote files before its ImportError")
+        notes.append(f"{name} raises ImportError naming {missing[0]} and writes no file")
+    log(f"[tools] make_demo_dataset: importable {found}; " + "; ".join(notes)
+        + "; the phase draws each image's ink")
+
+    t0 = time.perf_counter()
+    eqs = mdd.demo_equations(np.random.default_rng(DEMO_SEED), DEMO_N, realistic=True)
+    splits = mdd.split_equations(eqs)
+    for split, labels in splits.items():
+        shapes = iter([demo_canvas(split, i) for i in range(len(labels))])
+        mdd.write_split(os.path.join(build, split), labels,
+                        lambda eq, r: canvas(r, *next(shapes)), rng)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sets = mdd.pickle_splits(build, splits, DEMO_N)
+    pickle_s = time.perf_counter() - t0
+    rows = {split: len(ds) for split, ds in sets.items()}
+    if rows != {split: len(labels) for split, labels in splits.items()}:
+        raise AssertionError(f"pickled rows {rows}")
+    buckets = {split: {f"{h}x{w}": len(i) for (w, h), i in ds.sizes.items()}
+               for split, ds in sets.items()}
+    log(f"[tools] demo build: {DEMO_N} --realistic equations (seed {DEMO_SEED}), rows {rows}, "
+        f"buckets {buckets}, max_seq_len {sets['train'].max_seq_len}; written in {write_s:.2f} "
+        f"s, pickled in {pickle_s:.2f} s")
+
+    images = os.path.join(build, "train", "images")
+    left = rows["train"] - DEMO_TORN
+    for i in range(left, rows["train"]):
+        os.remove(os.path.join(images, f"eq_{i:05d}.png"))
+    partial = os.path.join(root, "partial")
+    pickle_partial_typeset.main(["--src", build, "--out", partial, "--n", str(DEMO_N),
+                                 "--seed", str(DEMO_SEED), "--holdout", str(DEMO_HOLDOUT)])
+    from texocr_tpu_torch.data.dataset import ImageDataset
+
+    parts = [ImageDataset.load(os.path.join(partial, s, f"{s}set.pkl"))
+             for s in ("train", "val", "test")]
+    took = sum(len(p) for p in parts)
+    labels = [label for p in parts for label in p.labels]
+    ok = took == left and labels == splits["train"][:left]
+    log(f"[tools] pickle_partial_typeset after deleting the last {DEMO_TORN} train images: "
+        f"take {took} (rows left {left}), splits {[len(p) for p in parts]}, labels "
+        f"{'equal to' if labels == splits['train'][:left] else 'DIFFER from'} the build's row "
+        f"for row {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("pickle_partial_typeset disagrees with the build")
+    return {"build": build, "rows": rows, "buckets": buckets, "write_s": write_s,
+            "pickle_s": pickle_s, "partial_take": took}
+
+
+def remat_steps(fa, config, train_set) -> dict:
+    """Phase 17 (b): one fixed full-canvas batch of DEMO_BATCH through the
+    flagship from the same weights, without and with remat: the first two
+    steps' losses, the flash launches of each step, the synchronised step
+    time (median of REMAT_TIMED), the peak memory and a profiled step (device
+    time, kernels, busy share) of each."""
+    from texocr_tpu_torch.config import ModelConfig, with_defaults
+    from texocr_tpu_torch.data.dataset import create_dataloader
+    from texocr_tpu_torch.models import OCRModel
+    from texocr_tpu_torch.telemetry import step_timer
+    from texocr_tpu_torch.training.optimizers import get_optimizer
+    from texocr_tpu_torch.training.train_step import (
+        create_train_state,
+        make_train_step,
+        put_batch,
+    )
+    from texocr_tpu_torch.utils import pad_to_multiple
+
+    config = with_defaults(dict(config, max_length=pad_to_multiple(
+        train_set.max_seq_len, config["seq_pad_multiple"]), vocab_size=1000))
+    batch = next(b for b in create_dataloader(train_set, config) if b[0].shape[1:3] == (160, 1008))
+    images, labels = put_batch(*batch, "cuda")
+    train_step = make_train_step(mask_pad=True)
+    out = {}
+    for remat in (False, True):
+        model = OCRModel(ModelConfig.from_dict(dict(config, remat=remat)), device="cuda",
+                         seed=config["seed"])
+        state = create_train_state(
+            model, get_optimizer("Adam", config["optimizer_args"], model.parameters()),
+            config["seed"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, launches, times = [], [], []
+        for i in range(2 + REMAT_TIMED):
+            fa.flash_attention.launches = 0
+            timed = {}
+            with step_timer(timed, sync=images):
+                loss = train_step(state, images, labels)["loss"]
+            launches.append(fa.flash_attention.launches)
+            (losses if i < 2 else times).append(loss.item() if i < 2 else timed["seconds"])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        prof = device_kernels(lambda: train_step(state, images, labels))
+        out["remat" if remat else "plain"] = {
+            "losses": losses, "launches_per_step": launches, "step_s": float(np.median(times)),
+            "peak_memory_gb": peak_gb,
+            "profile": {**prof, "device_busy_share": prof["device_s"] / prof["profiled_wall_s"]}}
+        log(f"[tools] profiled step {'with' if remat else 'without'} remat: "
+            + json.dumps(out["remat" if remat else "plain"]["profile"]))
+        del model, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def demo_train_run(fa, argv, root, name) -> dict:
+    """Runs demo_train's main on ``argv`` with its train_model, test_model and
+    graph engines wrapped to record, per run, the flash launches, seconds
+    and peak memory of training (with the epochs' records) and of the test
+    split's decode (each key's capture and each replay)."""
+    from texocr_tpu_torch.evaluation import evaluate
+    from texocr_tpu_torch.tools import demo_train
+    from texocr_tpu_torch.training import loop
+
+    rec = {"capture_s": [], "replay_s": [], "keys": []}
+    metrics = os.path.join(root, f"{name}.jsonl")
+    originals = loop.train_model, evaluate.test_model, evaluate.graph_engines
+
+    def train_model(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        model, state, history = originals[0](*args, metrics_path=metrics, **kwargs)
+        torch.cuda.synchronize()
+        rec.update(train_s=time.perf_counter() - t0, train_launches=fa.flash_attention.launches,
+                   train_peak_gb=torch.cuda.max_memory_allocated() / 1e9, steps=state.step)
+        return model, state, history
+
+    def test_model(*args, **kwargs):
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        got = originals[1](*args, **kwargs)
+        rec.update(test_s=time.perf_counter() - t0, test_launches=fa.flash_attention.launches)
+        return got
+
+    def graph_engines(model):
+        build = originals[2](model)
+
+        def factory(batch, canvas_hw, max_len, mode, beam_size):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graphed = build(batch, canvas_hw, max_len, mode, beam_size)
+            torch.cuda.synchronize()
+            rec["capture_s"].append(time.perf_counter() - t0)
+            rec["keys"].append([batch, *canvas_hw, max_len, mode])
+
+            def replay(images):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                tokens = graphed(images)
+                torch.cuda.synchronize()
+                rec["replay_s"].append(time.perf_counter() - t1)
+                return tokens
+
+            return replay
+
+        return factory
+
+    loop.train_model, evaluate.test_model, evaluate.graph_engines = (
+        train_model, test_model, graph_engines)
+    try:
+        t0 = time.perf_counter()
+        demo_train.main(argv)
+        rec["run_s"] = time.perf_counter() - t0
+    finally:
+        loop.train_model, evaluate.test_model, evaluate.graph_engines = originals
+    with open(metrics) as f:
+        records = [json.loads(line) for line in f]
+    rec["epochs"] = [r for r in records if r["event"] == "train_epoch"]
+    rec["val_events"] = sum(r["event"] == "val" for r in records)
+    with open(argv[argv.index("--metrics_out") + 1]) as f:
+        rec["metrics"] = json.load(f)
+    return rec
+
+
+def time_demo_shape(fa, gen) -> dict:
+    """Phase 3 at DEMO_SHAPE (bfloat16, split-head, CUDA-graph replays,
+    L2-warm and cold): the kernel against its plain version, and its time
+    beside the bound, the plain version and scaled_dot_product_attention."""
+    b, h, n, dh = DEMO_SHAPE
+    q, k, v = (split_heads(gen, b, h, n, dh, torch.bfloat16) for _ in range(3))
+    scale = dh ** -0.5
+    err, tol, note = hold_bf16(fa, fa.flash_attention(q, k, v, scale=scale),
+                               fa.flash_attention_plain(q, k, v, scale=scale), q, k, v, scale)
+    log(f"[tools] flash_attention bf16 {DEMO_SHAPE} split-head, kernel vs plain: {note} "
+        f"{'ok' if err <= tol else 'FAIL'}")
+    if not err <= tol:
+        raise AssertionError("flash attention kernel disagrees with its plain version")
+    bound, bound_by = attention_bound_ms(q, k)
+    calls = {"ms": lambda: fa.flash_attention(q, k, v, scale=scale),
+             "plain_ms": lambda: fa.flash_attention_plain(q, k, v, scale=scale),
+             "library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
+                 q, k, v, scale=scale)}
+    row = {"shape": list(DEMO_SHAPE), "max_abs_err": err, "bound_ms": bound,
+           "bound_by": bound_by}
+    for key, fn in calls.items():
+        iters = 5 if key == "plain_ms" else 30
+        row[key] = time_ms(fn, iters=iters)
+        row[key + "_l2_cold"] = time_ms(fn, iters=iters, cold=True)
+    log(f"[tools] flash_attention bf16 {DEMO_SHAPE} split-head timing: " + json.dumps(row))
+    return row
+
+
+def tools_phase(fa, rng, gen) -> dict:
+    """Phase 17: the data tools and demo_train on the card (see the module
+    docstring)."""
+    from texocr_tpu_torch.data.dataset import ImageDataset
+    from texocr_tpu_torch.tools import demo_train, train_curriculum
+
+    card = card_line()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        out["build"] = build = build_demo(rng, root)
+
+        base = ["--data", build["build"], "--device_data", "--augment", "--batch_size",
+                str(DEMO_BATCH), "--device", "cuda"] + train_curriculum.STAGES[DEMO_STAGE][
+                    "train"] + DEMO_CUTS
+        plain_ck, remat_ck = os.path.join(root, "plain_ckpts"), os.path.join(root, "remat_ckpts")
+        argvs = {
+            "plain": base + ["--save_dir", plain_ck, "--metrics_out",
+                             os.path.join(root, "results", "plain.json")],
+            "remat": base + DEMO_STAGE_W + ["--init_from", plain_ck, "--save_dir", remat_ck,
+                                            "--metrics_out",
+                                            os.path.join(root, "results", "remat.json")],
+        }
+        train_set = ImageDataset.load(os.path.join(build["build"], "train", "trainset.pkl"))
+        out["steps"] = steps = remat_steps(
+            fa, demo_train.build_config(demo_train.parse_args(argvs["plain"])), train_set)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(steps["remat"]["losses"],
+                                                      steps["plain"]["losses"]))
+        per_step = {k: sorted(set(r["launches_per_step"])) for k, r in steps.items()}
+        ok = rel <= BF16_FLOOR and per_step == {"plain": [N_LAYERS], "remat": [2 * N_LAYERS]}
+        log(f"[tools] fixed batch of {DEMO_BATCH} full canvases, the flagship from one seed: "
+            f"losses of two steps without remat {steps['plain']['losses']}, with remat "
+            f"{steps['remat']['losses']}, max relative difference {rel:.3e} (tol "
+            f"{BF16_FLOOR:g}); flash launches per step {per_step} (expected {N_LAYERS} and "
+            f"{2 * N_LAYERS}: remat recomputes each encoder sub-layer's forward); step s "
+            f"{steps['plain']['step_s']:.4f} without, {steps['remat']['step_s']:.4f} with "
+            f"remat; peak memory {steps['plain']['peak_memory_gb']:.2f} GB without, "
+            f"{steps['remat']['peak_memory_gb']:.2f} GB with; {card} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("remat changes the loss or the launches per step")
+
+        for name, argv in argvs.items():
+            run = demo_train_run(fa, argv, root, name)
+            expected = 2 * N_LAYERS if name == "remat" else N_LAYERS
+            train_per_step = (run["train_launches"] - N_LAYERS * run["val_events"]) / run["steps"]
+            decodes = run["metrics"]["batches"] + len(run["keys"])
+            losses = [r["loss"] for r in run["epochs"]]
+            step_s = [r["seconds"] / r["steps"] for r in run["epochs"]]
+            ok = (train_per_step == expected and run["test_launches"] == N_LAYERS * decodes
+                  and set(run["metrics"]) == METRICS_KEYS and run["metrics"]["batches"] == 2
+                  and np.isfinite(losses).all() and len(losses) == 2)
+            log(f"[tools] demo_train {name} ({' '.join(argv[argv.index('--device') + 2:])}): "
+                f"{run['steps']} train steps, epoch losses {losses}, epoch s "
+                f"{[round(r['seconds'], 3) for r in run['epochs']]} ({np.median(step_s):.4f} s "
+                f"a step, median over epochs, data included), train_model {run['train_s']:.1f} "
+                f"s, peak memory {run['train_peak_gb']:.2f} GB; flash launches {run['train_launches']} "
+                f"in training ({train_per_step:g} a train step with {run['val_events']} val "
+                f"steps, expected {expected}), {run['test_launches']} in test_model for "
+                f"{decodes} encodes; test split keys {run['keys']}, capture s "
+                f"{[round(t, 3) for t in run['capture_s']]}, replay s "
+                f"{[round(t, 4) for t in run['replay_s']]}, test_model {run['test_s']:.1f} s; "
+                f"metrics keys {sorted(run['metrics'])}; {card} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"demo_train {name} failed its checks")
+            run["step_s_median"] = float(np.median(step_s))
+            run["train_launches_per_step"] = train_per_step
+            run["encodes"] = decodes
+            out[name] = run
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train_curriculum.main(["--dry_run", "--stages", "A-C", "--base_dir",
+                                   os.path.join(root, "curriculum"), "--results_dir",
+                                   os.path.join(root, "results")])
+        lines = [line for line in buf.getvalue().splitlines() if line.startswith("+")]
+        trains = [line for line in lines if "-m texocr_tpu_torch.tools.demo_train " in line]
+        builds = [line for line in lines if "-m texocr_tpu_torch.tools.make_demo_dataset " in line]
+        ckpt = os.path.join(root, "curriculum", "stage{}_ckpts")
+        ok = (len(trains) == 3 and len(builds) == 3 and "--init_from" not in trains[0]
+              and f"--init_from {ckpt.format('A')}" in trains[1]
+              and f"--init_from {ckpt.format('B')}" in trains[2]
+              and all(os.path.join(root, "results", f"stage_{s}.json") in line
+                      for s, line in zip("ABC", trains)))
+        log(f"[tools] train_curriculum --dry_run --stages A-C: {len(builds)} builds and "
+            f"{len(trains)} trainings through the port's modules, warm starts chained "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("train_curriculum's commands do not chain the port's tools")
+    out["shape"] = time_demo_shape(fa, gen)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2636,6 +3020,7 @@ def main() -> int:
                                    "encodes": data[kind]["encodes"]} for kind in ("eager", "lazy")})
     parallel = phase("parallel", parallel_phase, fa, trained)
     shutil.rmtree(work)
+    tools = phase("tools", tools_phase, fa, rng, gen)
     launched = phase("launched shapes", check_launched, fa, gen, launch_log)
     log("[time] seconds per phase " + json.dumps(phase_s))
 
@@ -2671,6 +3056,13 @@ def main() -> int:
                       rank_shapes=rank_rows,
                       parallel_launches={k: v for k, v in parallel["launches"].items()
                                          if "decode" not in k})
+    kernels[0].update(tools_launches={name: {
+        key: tools[name][key] for key in ("train_launches", "train_launches_per_step", "steps",
+                                          "val_events", "test_launches", "encodes")}
+        for name in ("plain", "remat")},
+        tools_fixed_batch_launches_per_step={name: r["launches_per_step"]
+                                             for name, r in tools["steps"].items()},
+        tools_shape=tools["shape"])
     kernels[1].update(parallel_launches={k: v for k, v in parallel["launches"].items()
                                          if "decode" in k})
     log(json.dumps({"kernels": kernels}))
@@ -2706,6 +3098,13 @@ def main() -> int:
         + json.dumps({axis: [r[axis]["peak_memory_gb"] for r in parallel["ranks"]]
                       for axis in PARALLEL_BATCHES})
         + f"; seconds {parallel['seconds']} on {card}")
+    log(f"[tools] batch {DEMO_BATCH} full-canvas step s without and with remat "
+        f"{tools['steps']['plain']['step_s']:.4f}, {tools['steps']['remat']['step_s']:.4f}, peak "
+        f"memory GB {tools['steps']['plain']['peak_memory_gb']:.2f}, "
+        f"{tools['steps']['remat']['peak_memory_gb']:.2f}; demo_train step s (epoch means) "
+        f"{tools['plain']['step_s_median']:.4f}, {tools['remat']['step_s_median']:.4f}; "
+        f"flash bf16 {DEMO_SHAPE} {tools['shape']['ms']:.5f} ms against the library's "
+        f"{tools['shape']['library_ms']:.5f} on {card}")
     log(card_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -380,3 +380,93 @@ def test_data_path_runs_with_jax_pil_yaml_and_regex_blocked(tmp_path):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "data path ran on" in proc.stdout
+
+
+_TOOLS_CHILD = _BLOCKER.replace('"msgpack"}', '"msgpack", "matplotlib"}') + textwrap.dedent(
+    """
+    import contextlib, io, json, os, tempfile
+    import numpy as np
+    import torch
+    from texocr_tpu_torch.serving.image_io import encode_png
+    from texocr_tpu_torch.tools import (ambiguity_scan, demo_train, make_demo_dataset,
+                                        pickle_partial_typeset, train_curriculum)
+
+    tmp = tempfile.mkdtemp()
+    for call in (lambda: make_demo_dataset.render("x", None),
+                 lambda: make_demo_dataset.main(["--out", os.path.join(tmp, "none"), "--n", "8"])):
+        try:
+            call()
+            raise AssertionError("rendered without PIL")
+        except ImportError as e:
+            assert "PIL" in str(e), e
+    assert not os.path.exists(os.path.join(tmp, "none"))
+
+    # The tool's equation, split and pickle steps, with ink drawn here.
+    build = os.path.join(tmp, "demo")
+    rng = np.random.default_rng(0)
+    splits = make_demo_dataset.split_equations(
+        make_demo_dataset.demo_equations(np.random.default_rng(4), 40, realistic=True))
+    for split, labels in splits.items():
+        make_demo_dataset.write_split(
+            os.path.join(build, split), labels,
+            lambda eq, r: np.where(r.random((32, 320)) < 0.05, 0, 255).astype(np.uint8), rng)
+    make_demo_dataset.pickle_splits(build, splits, 40)
+    os.remove(os.path.join(build, "train", "images", "eq_00031.png"))
+    pickle_partial_typeset.main(["--src", build, "--out", os.path.join(tmp, "partial"),
+                                 "--n", "40", "--seed", "4", "--holdout", "4"])
+
+    try:
+        ambiguity_scan.main(["--labels", os.path.join(build, "test", "labels.txt")])
+        raise AssertionError("scanned without matplotlib")
+    except ImportError as e:
+        assert "matplotlib" in str(e), e
+
+    args = demo_train.parse_args(["--data", build, "--epochs", "1", "--batch_size", "4",
+                                  "--save_dir", os.path.join(tmp, "ck"), "--eval_batches", "1",
+                                  "--device", "cpu", "--device_data", "--remat"])
+    config = dict(demo_train.build_config(args), img_size=(32, 320), dtype="float32",
+                  encoder={"n_channels": 1, "embed_dim": 32, "num_layers": 1, "heads": 2,
+                           "resnet_depths": (1, 1, 1), "resnet_channels": (128, 128, 128),
+                           "stem_channels": 32},
+                  decoder={"embed_dim": 32, "num_layers": 1, "heads": 2, "exp_factor": 4})
+    final = demo_train.run(args, config)
+    assert np.isfinite(final["history"]).all() and final["batches"] == 1, final
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        train_curriculum.main(["--dry_run", "--base_dir", tmp, "--stages", "A-W"])
+    assert out.getvalue().count("-m texocr_tpu_torch.tools.demo_train") == 11
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("tools ran")
+    """
+)
+
+
+def test_tools_run_with_pil_and_matplotlib_blocked():
+    """The data tools and demo_train on a machine like the card's: the
+    renders and main raise ImportError naming PIL and write nothing; the
+    equation, split and pickle steps build a dataset with ink drawn by the
+    caller; pickle_partial_typeset, the ambiguity scan's ImportError naming
+    matplotlib, demo_train at tiny widths with remat on resident data, and
+    the curriculum's dry run; no blocked module is loaded."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _TOOLS_CHILD], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "tools ran" in proc.stdout
+
+
+def test_no_module_level_matplotlib_imports():
+    """matplotlib is imported inside the functions that typeset, never at the
+    top of a port module or chip_smoke.py."""
+    pattern = re.compile(r"^(import|from)\s+matplotlib(\.|\s|$)", re.MULTILINE)
+    paths = [os.path.join(root, name) for root, _, files in os.walk(PORT_DIR)
+             for name in files if name.endswith(".py")]
+    offenders = []
+    for path in paths + [os.path.join(REPO, "chip_smoke.py")]:
+        with open(path) as f:
+            if pattern.search(f.read()):
+                offenders.append(os.path.relpath(path, REPO))
+    assert not offenders, offenders

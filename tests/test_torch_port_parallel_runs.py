@@ -169,7 +169,7 @@ def test_cli_trains_on_two_processes(tmp_path):
 
 
 def test_dryrun_multichip_on_four_ranks(tmp_path, capsys):
-    result = dryrun_multichip(4, store_dir=str(tmp_path))
+    result = dryrun_multichip(4, device="cpu", store_dir=str(tmp_path))
     out = capsys.readouterr().out
     assert "dryrun_multichip OK: mesh={'data': 2, 'model': 2}" in out
     assert "sharded greedy decode (4, 8) ok" in out

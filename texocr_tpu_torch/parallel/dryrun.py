@@ -12,9 +12,10 @@ function of the port: the children import only what its module imports.
 ``dryrun_multichip(n)``: the flagship architecture at the JAX dry run's tiny
 shapes (32 x 64 images, 16 labels, ``max_length`` 64, float32) on the mesh
 ``{data: n / 2, model: 2}`` for even n >= 4, else ``{data: n}``: one Adam step
-on a batch of max(2 * data, 4), then 8 greedy steps under the same mesh.
+on a batch of max(2 * data, 4), then 8 greedy steps under the same mesh. It
+runs on the card unless ``device="cpu"`` is passed:
 
-    python -c "from texocr_tpu_torch.parallel.dryrun import dryrun_multichip; dryrun_multichip(4)"
+    python -c "from texocr_tpu_torch.parallel.dryrun import dryrun_multichip; dryrun_multichip(4, device='cpu')"
 """
 
 from __future__ import annotations
@@ -134,7 +135,7 @@ def _dryrun_rank(spec: dict, device) -> dict:
     return {"loss": loss, "step": state.step, "tokens": tokens.cpu().numpy()}
 
 
-def dryrun_multichip(n_devices: int, device="cpu", store_dir: Optional[str] = None) -> dict:
+def dryrun_multichip(n_devices: int, device="cuda", store_dir: Optional[str] = None) -> dict:
     """The training step and greedy decode of the flagship on ``n_devices``
     spawned ranks (see the module docstring) on ``device`` (each rank on the
     current card for "cuda"); prints an OK line and returns rank 0's loss,

@@ -1,12 +1,13 @@
 """Helpers: LaTeX post-processing, the sampler's top-k filter, TF-SAME
-padding math, and the reference's public helpers ``count_parameters``,
-``alphabetize_config`` and ``center_pad_image``."""
+padding math, and the reference's public helpers ``max_negative_val``,
+``count_parameters``, ``alphabetize_config``, ``center_pad_image`` and
+``exact_match``."""
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Tuple, Union
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,10 +52,31 @@ def topk_filter(logits: torch.Tensor, threshold: float = 0.9) -> torch.Tensor:
     return torch.full_like(logits, -math.inf).scatter(-1, order, values)
 
 
+def max_negative_val(dtype: torch.dtype) -> float:
+    """The most negative finite value of a floating ``dtype``."""
+    return -float(torch.finfo(dtype).max)
+
+
+def get_padding(kernel_size: int, stride: int = 1, dilation: int = 1) -> int:
+    """Static symmetric padding of a conv layer."""
+    return ((stride - 1) + dilation * (kernel_size - 1)) // 2
+
+
+def get_same_padding(x: int, k: int, s: int, d: int = 1) -> int:
+    """Total TF-SAME padding of one spatial dim of size ``x`` for kernel
+    ``k``, stride ``s`` and dilation ``d``."""
+    return max((math.ceil(x / s) - 1) * s + (k - 1) * d + 1 - x, 0)
+
+
+def is_static_pad(kernel_size: int, stride: int = 1, dilation: int = 1) -> bool:
+    """Whether TF-SAME padding is the same for every input size."""
+    return stride == 1 and (dilation * (kernel_size - 1)) % 2 == 0
+
+
 def same_pad_lo_hi(x: int, k: int, s: int, d: int = 1) -> Tuple[int, int]:
-    """(lo, hi) TF-SAME padding of one spatial dim of size ``x`` for kernel
-    ``k``, stride ``s`` and dilation ``d``: lo = total // 2, hi = the rest."""
-    total = max((math.ceil(x / s) - 1) * s + (k - 1) * d + 1 - x, 0)
+    """(lo, hi) TF-SAME padding of one spatial dim: lo = total // 2, hi = the
+    rest."""
+    total = get_same_padding(x, k, s, d)
     return total // 2, total - total // 2
 
 
@@ -62,6 +84,11 @@ def pad_to_multiple(x: int, multiple: int) -> int:
     """Round ``x`` up to the next multiple (the render-time canvas rule: height
     to 16k, width to 64k)."""
     return ((x + multiple - 1) // multiple) * multiple
+
+
+def exact_match(pred: List[int], target: List[int]) -> bool:
+    """Whether two token id sequences are equal."""
+    return list(pred) == list(target)
 
 
 def count_parameters(params: Union[torch.nn.Module, Dict[str, torch.Tensor]]) -> int:
