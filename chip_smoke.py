@@ -201,9 +201,26 @@ Phases, each fatal on failure:
      modules, the warm starts chained, the metrics under --results_dir.
      (e) The bf16 kernel at DEMO_SHAPE against its plain version, and
      timed as phase 3 times its shapes, beside the bound and the library.
+ 18. orbax (run before 14): the JAX package's orbax checkpoints, read and
+     written by the port without JAX (checkpoint/zstd.py, ocdbt.py,
+     orbax.py). (a) tests/goldens/jax_orbax_fixture, written by JAX's
+     orbax_io (f32, bf16, int32, int64 and scalar leaves, one sharded 2 x 2
+     into four chunks, one stored out of line, Adam's state with a clip and
+     a schedule), read on the card's installation: every leaf bit-equal to
+     orbax_fixture_tree's seed; prints the libzstd it loaded. (b) Phase 8's
+     latest checkpoint converted to the JAX layout (jax_from_state_dict,
+     jax_opt_state) and written by orbax.save_checkpoint, read back through
+     io.load_checkpoint bit-equal to state.pt (model, Adam moments and
+     steps, epoch, step); train_model resumed from it and from a copy of the
+     state.pt directory for one more epoch of phase 8's data (augmentation
+     off): equal losses (bit-equal expected, else within ORBAX_RESUME_RTOL)
+     and 4 flash launches per train and val step; TexOCR(model_path=...)
+     from each serving a batch of 8 full canvases x DECODE_STEPS through the
+     CUDA graphs: bit-equal tokens, 4 launches a replay. Prints write and
+     read s and MB/s, the resumed epoch's s a step and the launches.
  14. launched shapes: every flash launch from phase 3 on is recorded (shapes,
      type, strides, alignment, scale, causal, kv_lens) by the phase that made
-     it; each signature that phases 4-13b and 15-17 launched and phase 3 did
+     it; each signature that phases 4-13b and 15-18 launched and phase 3 did
      not check (the batcher's padded batches, the float32 checks at 2
      canvases, the golden model's, evaluation's captures, phase 17's batches
      of 32) is held against the plain version here, on fresh
@@ -308,6 +325,36 @@ PARALLEL_DECODE_MODES = ("greedy", "sample", "beam", "int8")
 RANK_SHAPES = ((64, 8, 631, torch.bfloat16), (32, 4, 631, torch.bfloat16),
                (2, 4, 631, torch.float32), (1, 8, 631, torch.float32),
                (2, 8, 9, torch.float32))
+ORBAX_FIXTURE = os.path.join(REPO, "tests", "goldens", "jax_orbax_fixture")
+ORBAX_FIXTURE_SEED = 13
+ORBAX_RESUME_RTOL = RESUME_RTOL  # phase 18's resumed epoch from the JAX layout against state.pt's
+
+
+def orbax_fixture_tree(seed=ORBAX_FIXTURE_SEED) -> dict:
+    """The tree of tests/goldens/jax_orbax_fixture/checkpoint_e3, from
+    ``seed`` with numpy alone, as the port's orbax reader gives it back.
+    JAX's orbax_io.save_checkpoint wrote it (tests/test_torch_port_orbax.py,
+    ``write_fixture``) with ``sharded`` over a 2 x 2 mesh (four chunks),
+    ``half`` as bfloat16 (these uint16 bits: the port reads a
+    ``torch.bfloat16`` view of them), ``table`` past the store's inline limit
+    (its chunk lies in a data file), and ``opt_state`` as the state of Adam
+    with a global-norm clip and a schedule (``EmptyState`` is None)."""
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    params = {"dense": {"kernel": f32(4, 8), "bias": f32(8)}, "sharded": f32(8, 16),
+              "table": f32(32, 64), "half": (f32(6, 5).view(np.uint32) >> 16).astype(np.uint16),
+              "ids": rng.integers(-2 ** 31, 2 ** 31 - 1, (3, 4), dtype=np.int32),
+              "wide": rng.integers(-2 ** 62, 2 ** 62, (5,), dtype=np.int64)}
+    moments = [{"kernel": f32(4, 8), "bias": f32(8)} for _ in range(2)]
+    count = np.asarray(5, np.int32)
+    adam = {"count": count, "mu": {"dense": moments[0]},
+            "nu": {"dense": {k: np.abs(v) for k, v in moments[1].items()}}}
+    return {"params": params, "epoch": 3, "opt_state": [None, adam, {"count": count.copy()}],
+            "step": 1234}
+
 
 def log(msg):
     print(msg, flush=True)
@@ -1178,7 +1225,7 @@ def train(fa, rng, data_dir=None) -> dict:
         write_train_data(data_dir, rng)
         train_set, val_set, _ = load_datasets(data_dir)
         train_set.augment = True  # as the training CLI sets it
-        config = train_config(os.path.join(tmp, "checkpoints"))
+        config = train_config(os.path.join(data_dir, "checkpoints"))
         metrics = os.path.join(tmp, "metrics.jsonl")
         torch.cuda.reset_peak_memory_stats()
         fa.flash_attention.launches = 0
@@ -1272,7 +1319,7 @@ def train(fa, rng, data_dir=None) -> dict:
             "profile": {**prof,
                         "device_busy_share": prof["device_s"] / prof["profiled_wall_s"],
                         "math_backward_share": backward_s / prof["device_s"]},
-            "resume_losses": [resumed, kept], "data_dir": data_dir,
+            "resume_losses": [resumed, kept], "data_dir": data_dir, "config": config,
         }
     log(f"[train] step (synchronised, over {TIMED_EPOCHS} epochs) {step_s} s, "
         f"{TRAIN_BATCH / median_full:.1f} images/s at (160, 1008); host loader alone "
@@ -1280,7 +1327,8 @@ def train(fa, rng, data_dir=None) -> dict:
         f"{prof['device_s'] * 1e3:.1f} ms on the device in {prof['profiled_wall_s'] * 1e3:.1f} "
         f"ms wall, {100 * result['profile']['device_busy_share']:.1f}% busy, attention's "
         f"math-path backward {100 * result['profile']['math_backward_share']:.1f}%")
-    log("[train] " + json.dumps({k: v for k, v in result.items() if k != "data_dir"}))
+    log("[train] " + json.dumps({k: v for k, v in result.items()
+                                 if k not in ("data_dir", "config")}))
     return result
 
 
@@ -2950,6 +2998,204 @@ def tools_phase(fa, rng, gen) -> dict:
     return out
 
 
+def leaves(tree, path="tree"):
+    """(path, leaf) of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves(v, f"{path}.{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from leaves(v, f"{path}.{i}")
+    else:
+        yield path, tree
+
+
+def leaf_bits(leaf):
+    """A leaf's dtype, shape and bytes (bfloat16 tensors as their bits)."""
+    if torch.is_tensor(leaf):
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.view(torch.int16).numpy().view(np.uint16)
+        else:
+            leaf = leaf.numpy()
+    if isinstance(leaf, np.ndarray):
+        return leaf.dtype.str, leaf.shape, leaf.tobytes()
+    return type(leaf).__name__, (), repr(leaf)
+
+
+def tree_mismatches(got, want) -> list:
+    """Paths where ``got`` and ``want`` differ in structure or in any bit."""
+    a, b = dict(leaves(got)), dict(leaves(want))
+    if sorted(a) != sorted(b):
+        return sorted(set(a) ^ set(b))
+    return [k for k in a if leaf_bits(a[k]) != leaf_bits(b[k])]
+
+
+def orbax_phase(fa, trained, device="cuda") -> dict:
+    """Phase 18: the JAX package's orbax checkpoints on the card's
+    installation (see the module docstring). ``trained``: phase 8's result,
+    whose checkpoints it converts."""
+    from texocr_tpu_torch.checkpoint import convert, io, orbax, zstd
+    from texocr_tpu_torch.config import ModelConfig
+    from texocr_tpu_torch.data.dataset import load_datasets
+    from texocr_tpu_torch.models import OCRModel
+    from texocr_tpu_torch.parallel.mesh import create_mesh
+    from texocr_tpu_torch.parallel.sharding import shard_optimizer_state
+    from texocr_tpu_torch.serving import TexOCR
+    from texocr_tpu_torch.tokenizer import DEFAULT_VOCAB_PATH
+    from texocr_tpu_torch.training.loop import train_model
+
+    # (a) Format coverage: the committed fixture, JAX-written, against its seed.
+    fixture = orbax.load_checkpoint(os.path.join(ORBAX_FIXTURE, "checkpoint_e3"))
+    want = orbax_fixture_tree()
+    half = want["params"]["half"]
+    want["params"]["half"] = torch.from_numpy(half.view(np.int16)).view(torch.bfloat16)
+    bad = tree_mismatches(fixture, want)
+    n_leaves = len(list(leaves(want)))
+    log(f"[orbax] (a) {ORBAX_FIXTURE}: {n_leaves} leaves (f32, bf16, int32, int64, scalars, a "
+        f"2x2-sharded leaf in 4 chunks, one out of line, Adam with clip and schedule) "
+        f"{'bit-equal to the seed' if not bad else 'DIFFER at ' + str(bad)}; zstd through "
+        f"ctypes from {zstd.library_path()}")
+    if bad:
+        raise AssertionError(f"the orbax fixture differs from its seed at {bad}")
+
+    # (b) Phase 8's flagship checkpoint in the JAX layout, written and read back.
+    config = trained["config"]
+    src = io.latest_checkpoint(config["save_dir"])
+    state = io.load_checkpoint(src)
+    model_config = {**config, "max_length": int(state["model"][convert.POS_EMBED_KEY].shape[0]),
+                    "vocab_size": int(state["model"]["decoder.net.to_logits.bias"].shape[0])}
+    keys = OCRModel(ModelConfig.from_dict(model_config), device="meta").parameter_keys()
+    work = os.path.dirname(config["save_dir"])
+    jax_dir = os.path.join(work, "jax_layout")
+    t0 = time.perf_counter()
+    params = convert.jax_from_state_dict(state["model"])
+    opt_state = convert.jax_opt_state(state["optimizer"], keys, config["optimizer"],
+                                      config["optimizer_args"])
+    to_jax_s = time.perf_counter() - t0
+    mb = {name: sum(np.asarray(v).nbytes for _, v in leaves(tree) if v is not None) / 1e6
+          for name, tree in (("params", params), ("opt_state", opt_state))}
+    t0 = time.perf_counter()
+    jax_ckpt = orbax.save_checkpoint(jax_dir, state["epoch"], params, opt_state,
+                                     extra={"step": state["step"]})
+    write_s = time.perf_counter() - t0
+    disk_mb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(jax_ckpt)
+                  for f in fs) / 1e6
+    del params, opt_state
+    t0 = time.perf_counter()
+    tree = orbax.load_checkpoint(jax_ckpt)
+    read_s = time.perf_counter() - t0
+    del tree
+    t0 = time.perf_counter()
+    back = io.load_checkpoint(jax_ckpt)
+    load_s = time.perf_counter() - t0
+    mesh = create_mesh()
+    numbered = shard_optimizer_state(back["optimizer"], keys, mesh)["optimizer"]["state"]
+    saved = state["optimizer"]["optimizer"]["state"]
+    bad = (tree_mismatches(back["model"], state["model"])
+           + tree_mismatches({str(k): v for k, v in numbered.items()},
+                             {str(k): v for k, v in saved.items()})
+           + [k for k in ("epoch", "step") if back[k] != state[k]])
+    total_mb = mb["params"] + mb["opt_state"]
+    log(f"[orbax] (b) {src} (state.pt) in the JAX layout: params {mb['params']:.1f} MB, Adam "
+        f"moments {mb['opt_state']:.1f} MB ({disk_mb:.1f} MB on disk); conversion "
+        f"{to_jax_s:.3f} s, orbax write {write_s:.3f} s ({total_mb / write_s:.1f} MB/s), read "
+        f"{read_s:.3f} s ({total_mb / read_s:.1f} MB/s), read and converted to the port's "
+        f"payload {load_s:.3f} s; "
+        + ("bit-equal to state.pt (model, moments, steps, epoch, step)" if not bad
+           else f"DIFFER at {bad[:5]}"))
+    if bad:
+        raise AssertionError(f"the JAX layout read back differs from state.pt at {bad[:5]}")
+    del back, numbered, state
+
+    # Resume train_model for one epoch of phase 8's data from each directory.
+    train_set, val_set, _ = load_datasets(trained["data_dir"])  # augmentation off: same batches
+    port_dir = os.path.join(work, "state_pt")
+    shutil.copytree(src, os.path.join(port_dir, os.path.basename(src)))
+    resumed = {}
+    for name, save_dir in (("jax layout", jax_dir), ("state.pt", port_dir)):
+        metrics = os.path.join(work, f"metrics_{name.replace(' ', '_')}.jsonl")
+        run = dict(config, save_dir=save_dir, resume=True, save_checkpoint=False,
+                   n_epochs=TRAIN_EPOCHS + 1)
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        _, st, history = train_model(train_set, val_set, run, verbose=False, device=device,
+                                     metrics_path=metrics)
+        seconds = time.perf_counter() - t0
+        launches = fa.flash_attention.launches
+        with open(metrics) as f:
+            records = [json.loads(line) for line in f]
+        epoch = next(r for r in records if r["event"] == "train_epoch")
+        epoch["steps"] = int(epoch["steps"])
+        val = [r["loss"] for r in records if r["event"] == "val"]
+        n_val = len(val)
+        resumed[name] = {"losses": history, "val": val, "seconds": seconds,
+                         "launches": launches, "steps": epoch["steps"], "step": st.step,
+                         "step_s": epoch["seconds"] / epoch["steps"]}
+        log(f"[orbax] resume from the {name}: epoch {TRAIN_EPOCHS + 1} of {epoch['steps']} "
+            f"steps from step {st.step - epoch['steps']}, loss {history}, val {val}, "
+            f"{seconds:.2f} s ({resumed[name]['step_s']:.4f} s a step over the epoch); flash "
+            f"launches {launches}")
+        if launches != N_LAYERS * (epoch["steps"] + n_val):
+            raise AssertionError(f"resume from the {name}: {launches} flash launches for "
+                                 f"{epoch['steps']} train and {n_val} val steps")
+        del st
+        torch.cuda.empty_cache()
+    a, b = resumed["jax layout"], resumed["state.pt"]
+    same = a["losses"] + a["val"] == b["losses"] + b["val"]
+    pairs = zip(a["losses"] + a["val"], b["losses"] + b["val"])
+    rel = max(abs(x - y) / abs(y) for x, y in pairs)
+    ok = a["step"] == b["step"] and (same or rel <= ORBAX_RESUME_RTOL)
+    differ = f"differ by {rel:.3g} relative (rtol {ORBAX_RESUME_RTOL:g})"
+    log(f"[orbax] resume: the JAX layout's losses against state.pt's "
+        f"{'bit-equal' if same else differ} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the resume from the JAX layout differs from the resume from "
+                             "state.pt")
+
+    # Serve batch 8 through the CUDA graphs from each directory.
+    rng = np.random.default_rng(18)
+    h, w = TRAIN_BUCKETS[0][0]
+    batch = np.stack([canvas(rng, h, w) for _ in range(BATCH)])[..., None]
+    served = {}
+    for name, path in (("jax layout", jax_ckpt), ("state.pt", src)):
+        engine = TexOCR({**{k: v for k, v in model_config.items()
+                            if k not in ("max_length", "vocab_size")},
+                         "tokenizer_path": DEFAULT_VOCAB_PATH, "model_path": path},
+                        device=device)
+        engine.generate_batch(batch, max_len=DECODE_STEPS)  # the key's capture
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        tokens = engine.generate_batch(batch, max_len=DECODE_STEPS)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        served[name] = {"tokens": tokens.cpu().numpy(), "seconds": time.perf_counter() - t0,
+                        "launches": fa.flash_attention.launches}
+        del engine
+        torch.cuda.empty_cache()
+        log(f"[orbax] serve from the {name}: batch {BATCH} x {tokens.shape[1]} tokens (max_len "
+            f"{DECODE_STEPS} within the checkpoint's positional table) "
+            f"{served[name]['seconds']:.3f} s (graph replay), flash launches "
+            f"{served[name]['launches']}")
+        if served[name]["launches"] != N_LAYERS:
+            raise AssertionError(f"serve from the {name}: {served[name]['launches']} flash "
+                                 "launches for one encode")
+    equal = np.array_equal(served["jax layout"]["tokens"], served["state.pt"]["tokens"])
+    log(f"[orbax] serve: tokens from the JAX layout {'bit-equal to' if equal else 'DIFFER from'}"
+        f" state.pt's ({served['state.pt']['tokens'].shape})")
+    if not equal:
+        raise AssertionError("TexOCR from the JAX layout gives other tokens than from state.pt")
+    return {"fixture_leaves": n_leaves, "params_mb": mb["params"],
+            "opt_state_mb": mb["opt_state"], "disk_mb": disk_mb, "to_jax_s": to_jax_s,
+            "write_s": write_s, "read_s": read_s, "load_s": load_s,
+            "write_mb_s": total_mb / write_s, "read_mb_s": total_mb / read_s,
+            "resume": {k: {x: v[x] for x in ("losses", "val", "seconds", "launches", "steps",
+                                             "step_s")} for k, v in resumed.items()},
+            "resume_bit_equal": same, "resume_max_rel": rel,
+            "serve": {k: {"seconds": v["seconds"], "launches": v["launches"]}
+                      for k, v in served.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3019,8 +3265,9 @@ def main() -> int:
     paths.update({f"data {kind}": {"launches": data[kind]["launches"],
                                    "encodes": data[kind]["encodes"]} for kind in ("eager", "lazy")})
     parallel = phase("parallel", parallel_phase, fa, trained)
-    shutil.rmtree(work)
     tools = phase("tools", tools_phase, fa, rng, gen)
+    interchange = phase("orbax", orbax_phase, fa, trained)
+    shutil.rmtree(work)
     launched = phase("launched shapes", check_launched, fa, gen, launch_log)
     log("[time] seconds per phase " + json.dumps(phase_s))
 
@@ -3065,6 +3312,11 @@ def main() -> int:
         tools_shape=tools["shape"])
     kernels[1].update(parallel_launches={k: v for k, v in parallel["launches"].items()
                                          if "decode" in k})
+    kernels[0].update(orbax_launches={
+        **{f"resume from the {k}": {"launches": v["launches"], "train_steps": v["steps"]}
+           for k, v in interchange["resume"].items()},
+        **{f"serve from the {k}": {"launches": v["launches"], "encodes": 1}
+           for k, v in interchange["serve"].items()}})
     log(json.dumps({"kernels": kernels}))
     log(f"[serve] median per-request s {served['request_s']}, batch img/s "
         f"{BATCH / served['batch_s']} on {card}")
@@ -3105,6 +3357,12 @@ def main() -> int:
         f"{tools['plain']['step_s_median']:.4f}, {tools['remat']['step_s_median']:.4f}; "
         f"flash bf16 {DEMO_SHAPE} {tools['shape']['ms']:.5f} ms against the library's "
         f"{tools['shape']['library_ms']:.5f} on {card}")
+    log(f"[orbax] flagship checkpoint in the JAX layout ({interchange['params_mb']:.1f} MB "
+        f"params, {interchange['opt_state_mb']:.1f} MB moments): write "
+        f"{interchange['write_s']:.3f} s ({interchange['write_mb_s']:.1f} MB/s), read "
+        f"{interchange['read_s']:.3f} s ({interchange['read_mb_s']:.1f} MB/s), resumed step s "
+        + json.dumps({k: v["step_s"] for k, v in interchange["resume"].items()})
+        + f", resume losses bit-equal {interchange['resume_bit_equal']} on {card}")
     log(card_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -6,7 +6,8 @@ and CLI, split, the latex render chain, prune, pickle, directory datasets
 eager and lazy into training), chip_smoke.py and tools/flash_kernel_ab.py
 need neither PIL, PyYAML nor regex, none of which a port module imports at
 module level; nor does any port module import msgpack (the card's machine
-has none: the port reads flax's msgpack with the standard library)."""
+has none: the port reads flax's msgpack with the standard library) or
+tensorstore (the port reads and writes orbax's OCDBT files itself)."""
 
 import os
 import re
@@ -21,7 +22,7 @@ _BLOCKER = textwrap.dedent(
     """
     import importlib, importlib.util, pkgutil, sys
 
-    BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "texocr_tpu",
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "texocr_tpu",
                "PIL", "yaml", "regex", "msgpack"}
 
     class Blocker:
@@ -71,6 +72,13 @@ _CHILD = _BLOCKER + textwrap.dedent(
     ids, latex = TexOCR(config, device="cpu")(np.full((20, 40), 255, np.uint8), max_len=3)
     assert isinstance(latex, str)
 
+    # The committed JAX orbax checkpoint, read and written back.
+    import tempfile
+    from texocr_tpu_torch.checkpoint import orbax
+    tree = orbax.load_checkpoint("tests/goldens/jax_orbax_fixture/checkpoint_e3")
+    with tempfile.TemporaryDirectory() as tmp:
+        orbax.save_checkpoint(tmp, tree["epoch"], tree["params"], tree["opt_state"])
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("imported", len(names), "modules")
@@ -90,7 +98,7 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
 
 def test_no_jax_or_reference_imports_in_port_sources():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|texocr_tpu)(\.|\s|$)",
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|tensorstore|texocr_tpu)(\.|\s|$)",
         re.MULTILINE,
     )
     offenders = []

@@ -9,10 +9,11 @@ CPU.
   tiny model's JAX params, a bfloat16 tree, and a leaf chunked by patching
   flax's ``MAX_CHUNK_SIZE`` small (inside the test only); each equal, bit
   for bit, to ``state_dict_from_jax`` of the same params. A real orbax
-  checkpoint directory: refused with the ``ValueError`` that names
-  ``params_cache.msgpack`` until the JAX package's ``load_params_fast`` has
-  written it, then read, directly, through its save_dir
-  (``load_weights``) and by ``TexOCR``'s ``model_path``.
+  checkpoint directory: read from its orbax files until the JAX package's
+  ``load_params_fast`` has written ``params_cache.msgpack``, then from that
+  file (the orbax reader is not called), directly, through its save_dir
+  (``load_weights``) and by ``TexOCR``'s ``model_path``; a directory that
+  holds neither raises the ``ValueError`` that names both.
 - ``count_parameters``, ``alphabetize_config`` and ``center_pad_image``
   against ``texocr_tpu.utils``: equal counts, files and arrays.
 
@@ -37,6 +38,7 @@ from texocr_tpu.config import ModelConfig as JaxModelConfig
 from texocr_tpu.models import OCRModel as JaxOCRModel
 from texocr_tpu_torch import utils
 from texocr_tpu_torch.checkpoint import load_jax_params, load_weights, state_dict_from_jax
+from texocr_tpu_torch.checkpoint import ocdbt
 from texocr_tpu_torch.checkpoint.msgpack import unpackb
 from texocr_tpu_torch.config import ModelConfig
 from texocr_tpu_torch.models import OCRModel
@@ -144,16 +146,21 @@ def test_load_jax_params_of_chunked_leaves(jax_params, tmp_path, monkeypatch, dt
     _assert_bit_equal(load_jax_params(str(path)), state_dict_from_jax(params))
 
 
-def test_jax_checkpoint_directory_needs_its_params_cache(jax_params, tmp_path):
+def test_jax_checkpoint_directory_needs_its_params_cache(jax_params, tmp_path, monkeypatch):
+    with pytest.raises(ValueError, match="_METADATA nor params_cache.msgpack"):
+        load_jax_params(str(tmp_path))
     save_checkpoint(str(tmp_path), 4, jax.tree.map(jnp.asarray, jax_params))
     ckpt = str(tmp_path / "checkpoint_e4")
-    for path in (ckpt, str(tmp_path)):  # the directory, and its save_dir
-        with pytest.raises(ValueError, match="params_cache.msgpack.*load_params_fast"):
-            load_weights(path)
-    with pytest.raises(ValueError, match="params_cache.msgpack"):
-        load_jax_params(ckpt)
-    load_params_fast(ckpt)  # the JAX package writes the cache
     want = state_dict_from_jax(jax_params)
+    for path in (ckpt, str(tmp_path)):  # the directory, and its save_dir: the orbax files
+        _assert_bit_equal(load_weights(path), want)
+    _assert_bit_equal(load_jax_params(ckpt), want)
+    load_params_fast(ckpt)  # the JAX package writes the cache, which the port reads first
+
+    def unread(path):
+        raise AssertionError(f"read the orbax files of {path}")
+
+    monkeypatch.setattr(ocdbt, "read_store", unread)
     _assert_bit_equal(load_jax_params(ckpt), want)
     _assert_bit_equal(load_weights(ckpt), want)
     _assert_bit_equal(load_weights(str(tmp_path)), want)

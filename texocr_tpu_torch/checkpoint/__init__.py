@@ -1,4 +1,5 @@
-"""Checkpoints: reference state dicts and JAX parameter trees."""
+"""Checkpoints: reference state dicts, JAX parameter trees and optimizer
+state, and the JAX package's orbax directories (``orbax.py``)."""
 
 from texocr_tpu_torch.checkpoint.convert import (  # noqa: F401
     load_jax_params,

@@ -4,9 +4,13 @@ The JAX package's cadence and directory naming (``save_dir/checkpoint_e{epoch}``
 the highest epoch is the latest), stored with ``torch.save`` as one
 ``state.pt`` in that directory and read back with
 ``torch.load(weights_only=True)``: tensors, numbers, strings and plain
-containers only. The JAX package's checkpoints are orbax directories; the
-port reads their params from the ``params_cache.msgpack`` beside them
-(``convert.load_jax_params``). ``load_weights`` takes any of these.
+containers only. The JAX package's checkpoints are orbax directories
+(``checkpoint/orbax.py``), which ``load_checkpoint`` reads into the same
+payload: the params converted to reference keys, the optimizer's optax state
+to the port's (``convert.optimizer_state_from_jax``), the epoch and the step.
+``load_weights`` takes any of these, and state dict files. The port's trainer
+writes ``state.pt``; ``orbax.save_checkpoint`` writes the JAX layout (with
+``convert.jax_from_state_dict`` and ``convert.jax_opt_state``).
 
 Checkpoints are mesh-independent: on a process mesh the training loop saves
 the full, reference-keyed model and optimizer state gathered from the model
@@ -21,7 +25,14 @@ from typing import Dict, Optional
 
 import torch
 
-from texocr_tpu_torch.checkpoint.convert import JAX_PARAMS_CACHE, load_jax_params, load_state
+from texocr_tpu_torch.checkpoint import orbax
+from texocr_tpu_torch.checkpoint.convert import (
+    load_jax_params,
+    load_state,
+    optimizer_state_from_jax,
+    state_dict_from_jax,
+)
+from texocr_tpu_torch.checkpoint.orbax import latest_checkpoint
 
 STATE_FILE = "state.pt"
 
@@ -48,24 +59,17 @@ def save_checkpoint(save_dir: str, epoch: int, model_state: Dict[str, torch.Tens
 
 
 def load_checkpoint(path: str) -> dict:
-    """The payload of a checkpoint directory, on the CPU."""
-    return torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
-
-
-def latest_checkpoint(save_dir: str) -> Optional[str]:
-    """The highest-epoch ``checkpoint_e*`` directory of ``save_dir``, or None."""
-    if not os.path.isdir(save_dir):
-        return None
-    best, best_epoch = None, -1
-    for name in os.listdir(save_dir):
-        if name.startswith("checkpoint_e"):
-            try:
-                epoch = int(name[len("checkpoint_e"):])
-            except ValueError:
-                continue
-            if epoch > best_epoch:
-                best, best_epoch = os.path.join(save_dir, name), epoch
-    return best
+    """The payload of a checkpoint directory, on the CPU: the port's
+    ``state.pt``, or a JAX orbax directory converted (``model``,
+    ``optimizer`` where it holds an ``opt_state``, ``epoch`` and ``step``)."""
+    if os.path.exists(os.path.join(path, STATE_FILE)) or not orbax.is_checkpoint(path):
+        return torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+    tree = orbax.load_checkpoint(path)
+    payload = {"model": state_dict_from_jax(tree["params"]), "epoch": int(tree["epoch"]),
+               "step": int(tree.get("step") or 0)}
+    if tree.get("opt_state") is not None:
+        payload["optimizer"] = optimizer_state_from_jax(tree["opt_state"])
+    return payload
 
 
 def warm_start_params(restored: Dict[str, torch.Tensor],
@@ -101,13 +105,15 @@ def load_weights(path: str) -> Dict[str, torch.Tensor]:
     """Reference-keyed weights from any checkpoint the port reads: a state
     dict file (``.pth``/``.pt``/``.npz``), a JAX ``params_cache.msgpack``, a
     checkpoint directory of the port's trainer (``state.pt``) or of the JAX
-    package's (its ``params_cache.msgpack``), or a ``save_dir`` of either
-    (its latest epoch). A directory that holds none of these raises
-    ``ValueError``, as ``convert.load_jax_params`` says."""
+    package's (its ``params_cache.msgpack`` where there is one, else its
+    orbax files), or a ``save_dir`` of either (its latest epoch). A
+    directory that holds none of these raises ``ValueError``, as
+    ``convert.load_jax_params`` says."""
     path = str(path)
     if not os.path.isdir(path):
         return load_jax_params(path) if path.endswith(".msgpack") else load_state(path)
-    if not any(os.path.exists(os.path.join(path, f)) for f in (STATE_FILE, JAX_PARAMS_CACHE)):
+    if not (os.path.exists(os.path.join(path, STATE_FILE)) or orbax.is_checkpoint(path)
+            or os.path.exists(os.path.join(path, orbax.PARAMS_CACHE))):
         path = latest_checkpoint(path) or path
     if os.path.exists(os.path.join(path, STATE_FILE)):
         return load_checkpoint(path)["model"]

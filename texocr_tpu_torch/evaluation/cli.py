@@ -6,8 +6,8 @@
 ``-d`` holds ``test/testset.pkl`` as either package's ``ImageDataset.save``
 writes it. ``--checkpoint`` takes what ``checkpoint.load_weights`` reads: a
 reference state dict, the port's checkpoints, or a JAX training run's
-``checkpoint_e*`` directory holding the ``params_cache.msgpack`` that the
-JAX package's ``load_params_fast`` writes. On a CUDA device every batch
+``checkpoint_e*`` orbax directory (its ``params_cache.msgpack`` first, where
+the JAX package wrote one). On a CUDA device every batch
 decodes through CUDA graphs (``evaluate.test_model``).
 """
 
@@ -31,8 +31,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="configuration file (.yml, or .json without PyYAML)")
     p.add_argument("--checkpoint", type=str, default=None,
                    help=".pth/.pt/.npz state dict, a checkpoint directory of the port's "
-                        "trainer or of a JAX run (with its params_cache.msgpack), or the "
-                        "save_dir of either (its latest epoch)")
+                        "trainer or of a JAX run (orbax), or the save_dir of either (its "
+                        "latest epoch)")
     p.add_argument("--max_len", type=int, default=276)
     p.add_argument("--max_batches", type=int, default=None)
     p.add_argument("--decode", type=str, default="greedy", choices=("greedy", "beam"))

@@ -156,12 +156,19 @@ def gather_state_dict(local: Dict[str, torch.Tensor], mesh,
 def _map_optimizer_state(state: dict, keys: Sequence[str], fn) -> dict:
     """``state`` (``Optimizer.state_dict()``) with ``fn(key, tensor)`` applied
     to every per-parameter buffer of a parameter's shape (Adam's moments,
-    SGD's momentum); scalars such as Adam's step count pass through."""
+    SGD's momentum); scalars such as Adam's step count pass through. State
+    named by parameter key (converted from a JAX checkpoint) comes out
+    numbered in the order of ``keys``, and must name every key."""
     inner = state["optimizer"]
+    named = {k for k in inner["state"] if isinstance(k, str)}
+    if named and named != set(keys):
+        raise ValueError(f"the optimizer state names {sorted(named - set(keys))[:3]} that the "
+                         f"model lacks and lacks {sorted(set(keys) - named)[:3]}")
+    position = {k: i for i, k in enumerate(keys)}
     per_param = {}
     for index, buffers in inner["state"].items():
-        key = keys[index]
-        per_param[index] = {name: fn(key, t) if torch.is_tensor(t) and t.dim() > 0 else t
+        key = index if named else keys[index]
+        per_param[position[key]] = {name: fn(key, t) if torch.is_tensor(t) and t.dim() > 0 else t
                             for name, t in buffers.items()}
     return {**state, "optimizer": {**inner, "state": per_param}}
 

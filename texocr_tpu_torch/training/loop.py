@@ -31,6 +31,7 @@ import torch
 from texocr_tpu_torch.checkpoint.io import (
     latest_checkpoint,
     load_checkpoint,
+    load_weights,
     save_checkpoint,
     warm_start_params,
 )
@@ -71,7 +72,8 @@ def train_model(train_set: ImageDataset, val_set: Optional[ImageDataset], config
     the reference-format dict; ``max_length`` and ``vocab_size`` come from
     the dataset where it lacks them. ``init_from`` (a checkpoint directory or
     a save_dir) warm-starts the weights; ``resume`` continues from the latest
-    checkpoint in ``save_dir``, step counter and optimizer state included."""
+    checkpoint in ``save_dir``, step counter and optimizer state included.
+    Either takes the port's checkpoints and the JAX package's orbax ones."""
     config = with_defaults(dict(config))
     tcfg = TrainConfig.from_dict(config)
     if "max_length" not in config:
@@ -92,7 +94,7 @@ def train_model(train_set: ImageDataset, val_set: Optional[ImageDataset], config
     if config.get("init_from"):
         # Weights only, shape-adapting: fresh optimizer state, epoch 0.
         path = latest_checkpoint(config["init_from"]) or config["init_from"]
-        restored = load_checkpoint(path)["model"]
+        restored = load_weights(path)
         full = gather_state_dict(model.state_dict(), mesh, model.full_shapes)
         model.load_state_dict(shard_state_dict(warm_start_params(restored, full), mesh))
         if verbose:

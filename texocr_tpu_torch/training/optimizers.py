@@ -95,9 +95,28 @@ class Optimizer:
         return state
 
     def load_state_dict(self, state: Dict) -> None:
-        self.optimizer.load_state_dict(state["optimizer"])
-        if self.scheduler is not None:
-            self.scheduler.load_state_dict(state["scheduler"])
+        """Loads ``state_dict()``'s payload, or one converted from a JAX
+        checkpoint (``checkpoint.convert.optimizer_state_from_jax``), which
+        has no param groups (this optimizer keeps its own hyperparameters)
+        and gives the schedule as its position alone."""
+        inner = state["optimizer"]
+        if "param_groups" not in inner:
+            inner = {**inner, "param_groups": self.optimizer.state_dict()["param_groups"]}
+        self.optimizer.load_state_dict(inner)
+        schedule = state.get("scheduler")
+        if (self.scheduler is None) != (schedule is None):
+            raise ValueError("the checkpoint's optimizer state and this optimizer disagree on "
+                             "having a learning-rate schedule")
+        if self.scheduler is None:
+            return
+        if "base_lrs" not in schedule:  # the position alone: this schedule's rates there
+            count = int(schedule["last_epoch"])
+            lrs = [base * fn(count) for base, fn in zip(self.scheduler.base_lrs,
+                                                         self.scheduler.lr_lambdas)]
+            schedule = {**self.scheduler.state_dict(), "last_epoch": count, "_last_lr": lrs}
+            for group, lr in zip(self.optimizer.param_groups, lrs):
+                group["lr"] = lr
+        self.scheduler.load_state_dict(schedule)
 
 
 def clip_by_global_norm(grads, max_norm: float, split=(),
