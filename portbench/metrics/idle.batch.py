@@ -1,0 +1,6 @@
+"""Share of the traced batch (one more, after the window) in which no
+operation ran on the device."""
+
+
+def read(run):
+    return run.slice.idle_percent() if run.slice is not None else None
