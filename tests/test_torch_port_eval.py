@@ -228,3 +228,22 @@ def test_graph_cache_drops_the_least_recently_used_key():
     assert [k[0][1] for k in cache.keys] == [8, 16, 24, 16]
     cache.close()
     assert not cache.engines
+
+
+def test_verbose_test_model_takes_an_engine_without_capture_time(tmp_path, capsys):
+    """A factory's engine need not be a ``GraphedGenerate``: the verbose
+    line says it was built, without a capture time."""
+    rng = np.random.default_rng(5)
+    images = [np.where(rng.random((32, 64)) < 0.1, 0, 255).astype(np.uint8) for _ in range(3)]
+    tokens = [rng.integers(0, 997, int(rng.integers(3, 9))).tolist() for _ in images]
+    path = str(tmp_path / "testset.pkl")
+    ImageDataset.from_arrays(images, tokens).save(path)
+    cfg = dict(_config(), keep_small=True)
+    model = OCRModel(ModelConfig.from_dict(cfg), device="cpu", seed=4)
+    kw = dict(max_len=MAX_LEN, decode_mode="greedy", beam_size=3)
+    got = port_eval.test_model(ImageDataset.load(path), model, dict(cfg), verbose=True,
+                               engine_factory=lambda *key: StubEngine(model, *key), **kw)
+    out = capsys.readouterr().out
+    assert "graph key" in out and "captured in" not in out
+    assert got == port_eval.test_model(ImageDataset.load(path), model, dict(cfg),
+                                       verbose=False, **kw)

@@ -19,7 +19,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
-import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -38,7 +37,9 @@ from texocr_tpu_torch.models.graphed import make_graphed_generate
 MAX_GRAPH_KEYS = 16
 
 #: (batch, (H, W), max_len, mode, beam_size) -> a callable from (B, H, W, 1)
-#: float32 model inputs on the device to (B, max_len) tokens.
+#: float32 model inputs on the device to (B, max_len) tokens; a verbose
+#: ``GraphCache`` prints its ``capture_s`` where it has one
+#: (``GraphedGenerate``'s).
 EngineFactory = Callable[[int, Tuple[int, int], int, str, int], Callable]
 
 
@@ -63,12 +64,13 @@ class GraphCache:
         if engine is None:
             if len(self.engines) >= self.max_keys:
                 self.engines.popitem(last=False)
-            t0 = time.perf_counter()
             engine = self.factory(images.shape[0], tuple(images.shape[1:3]), max_len, mode,
                                   beam_size)
             self.keys.append(key)
             if self.verbose:
-                print(f"graph key {key}: built in {time.perf_counter() - t0:.2f} s "
+                capture_s = getattr(engine, "capture_s", None)
+                took = "built" if capture_s is None else f"captured in {capture_s:.2f} s"
+                print(f"graph key {key}: {took} "
                       f"({len(self.engines) + 1} held, {len(self.keys)} built)")
         self.engines[key] = engine
         return engine(images)

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from texocr_tpu_torch import telemetry
 from texocr_tpu_torch.models.layers import MLP, TorchDense
 from texocr_tpu_torch.ops.attention_core import attention_core, math_attention
 from texocr_tpu_torch.parallel.layers import copy_to_model, row_parallel
@@ -109,11 +110,18 @@ def chunk_start(cache: KVCache, t: int, chunk: int) -> int:
 def decode_chunks(state, run_chunk: Callable[[int], None]) -> None:
     """Runs ``state``'s chunks 0, 1, ... through ``run_chunk(c)``, and stops
     once every row is done: the host reads the done flags between chunks
-    only (the JAX package's ``while_loop`` condition)."""
+    only (the JAX package's ``while_loop`` condition). While a profile runs,
+    each chunk is a ``decode.chunk`` span (with its device time) and each
+    read of the flags a ``decode.check`` span; captures call ``run_chunk``
+    themselves, so no span enters a captured region."""
     for c in range(state.n_chunks):
-        run_chunk(c)
-        if c + 1 < state.n_chunks and bool(state.done.all()):
-            break
+        with telemetry.span("decode.chunk", device=state.done):
+            run_chunk(c)
+        if c + 1 < state.n_chunks:
+            with telemetry.span("decode.check"):
+                done = bool(state.done.all())
+            if done:
+                break
 
 
 def reorder_cache(cache: KVCache, rows: torch.Tensor, spare: KVCache) -> None:

@@ -22,7 +22,11 @@ captures the same work once per key and replays it:
   reduction lengths, other numbers.)
 
 Between chunk replays the host reads the done flags (``decode_chunks``), as
-the eager loop does and as the JAX ``while_loop``'s condition. A replay
+the eager loop does and as the JAX ``while_loop``'s condition. While a profile
+runs, the encode replay is a ``decode.encode`` span with its device time, as
+each chunk's replay is a ``decode.chunk`` span; every key adds its warm-up and
+capture seconds to the counter ``graphs.capture_s`` (and to ``capture_s``),
+and 1 to ``graphs.keys``. A replay
 launches the flash kernel without passing through its wrapper, so each graph
 keeps the count of flash launches its capture made and adds it to
 ``flash_attention.launches`` when it replays; a capture itself launches
@@ -45,10 +49,12 @@ captured, which gloo's cannot be, and NCCL needs a GPU per rank.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Optional, Tuple
 
 import torch
 
+from texocr_tpu_torch import telemetry
 from texocr_tpu_torch.models.attention import decode_chunks
 from texocr_tpu_torch.models.generate import check_mode, decode_state
 from texocr_tpu_torch.models.ocr_model import OCRModel
@@ -83,11 +89,16 @@ class GraphedGenerate:
         self._pool = torch.cuda.graph_pool_handle()
         self._stream = torch.cuda.Stream(device)
         with _CAPTURE_LOCK, torch.inference_mode():
+            t0 = time.perf_counter()
             self._warm_up()
             self._encode_graph, self.cross_kv = self._capture(self._encode)
             self.state = decode_state(model, self.cross_kv, **self.decode_args)
             self._chunk_graphs = [self._capture(lambda c=c: self.state.run_chunk(c))[0]
                                   for c in range(self.state.n_chunks)]
+            #: Seconds of this key's eager warm-up and captures.
+            self.capture_s = time.perf_counter() - t0
+            telemetry.count("graphs.capture_s", self.capture_s)
+            telemetry.count("graphs.keys")
 
     def _input_buffer(self, batch: int, canvas: Tuple[int, int], device) -> torch.Tensor:
         """The static input: white uint8 canvases, or their float32 model
@@ -137,7 +148,8 @@ class GraphedGenerate:
         flash_attention.flash_attention.launches += launches
 
     def encode(self) -> None:
-        self._replay(self._encode_graph)
+        with telemetry.span("decode.encode", device=self.images):
+            self._replay(self._encode_graph)
 
     def decode(self) -> None:
         decode_chunks(self.state, lambda c: self._replay(self._chunk_graphs[c]))

@@ -28,8 +28,8 @@ from typing import List
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from texocr_tpu_torch import telemetry
 from texocr_tpu_torch.parallel.mesh import MeshAxis
 
 #: Gradient bytes per all-reduce of the data-parallel step: a few
@@ -46,7 +46,7 @@ ROWS_SPAN = "gather_rows"
 
 
 def _all_reduce(x: torch.Tensor, axis: MeshAxis, span: str = MODEL_SPAN) -> torch.Tensor:
-    with record_function(span):
+    with telemetry.span(span):
         dist.all_reduce(x, group=axis.group)
     return x
 

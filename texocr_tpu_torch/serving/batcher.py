@@ -18,6 +18,12 @@ port's CUDA graphs read the prefix at its true length at every step. The
 fixed batch sizes stay: on a CUDA engine each (canvas, batch size) is one set
 of CUDA graphs, captured on its first batch, as the JAX package compiles one
 program per shape; ``warmup`` captures them all before the first request.
+
+Counters (``telemetry.count``), added once a group's last future is set:
+``batcher.groups``; ``batcher.rows``, its requests (zero canvases left
+out); ``batcher.wait_s``, their time from ``submit`` to the group's engine
+call, summed; ``batcher.service_s``, from that call to the last future set.
+``warmup`` counts nothing.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from concurrent.futures import Future
 from typing import Optional, Tuple
 
 import numpy as np
+
+from texocr_tpu_torch import telemetry
 
 
 class ServingBatcher:
@@ -153,22 +161,27 @@ class ServingBatcher:
             items = self._expire(items)
             # Group by canvas shape: same-bucket requests batch together.
             groups = {}
-            for canvas, fut, _ in items:
-                groups.setdefault(canvas.shape[1:3], []).append((canvas, fut))
+            for canvas, fut, t_in in items:
+                groups.setdefault(canvas.shape[1:3], []).append((canvas, fut, t_in))
             for group in groups.values():
-                canvases = np.concatenate([c for c, _ in group], axis=0)
+                canvases = np.concatenate([c for c, _, _ in group], axis=0)
                 n = canvases.shape[0]
                 padded_n = self._padded_size(n)
                 if padded_n > n:
                     filler = np.zeros((padded_n - n,) + canvases.shape[1:], canvases.dtype)
                     canvases = np.concatenate([canvases, filler])
+                t_call = time.monotonic()
                 try:
                     tokens = self.engine.generate_batch(canvases, max_len=self.max_len,
                                                         mode=self.mode).cpu().numpy()
                     self.warm = True
-                    for row, (_, fut) in zip(tokens[:n], group):
+                    for row, (_, fut, _) in zip(tokens[:n], group):
                         fut.set_result(self.engine.postprocess(row))
                 except Exception as e:  # the worker keeps serving; every waiter gets the error
-                    for _, fut in group:
+                    for _, fut, _ in group:
                         if not fut.done():
                             fut.set_exception(e)
+                telemetry.count("batcher.service_s", time.monotonic() - t_call)
+                telemetry.count("batcher.wait_s", sum(t_call - t_in for _, _, t_in in group))
+                telemetry.count("batcher.rows", n)
+                telemetry.count("batcher.groups")

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from texocr_tpu_torch import telemetry
 from texocr_tpu_torch.checkpoint.convert import POS_EMBED_KEY
 from texocr_tpu_torch.checkpoint.io import load_weights
 from texocr_tpu_torch.config import ModelConfig, with_defaults
@@ -133,11 +134,12 @@ class TexOCR:
         token ids on the model's device, PAD after EOS. A model whose decoder
         has no cross-attention raises ``ValueError`` (``check_mode``)."""
         u8 = torch.as_tensor(images)
-        if self.device.type == "cuda":
-            return self._decode_fn(tuple(u8.shape), max_len, mode, beam_size, temp)(u8)
-        u8 = u8.to(self.device)
-        return generate(self.model, 1.0 - u8.float() / 255.0, max_len=max_len, mode=mode,
-                        generator=self.generator, temp=temp, beam_size=beam_size)
+        with telemetry.span("engine.call"):
+            if self.device.type == "cuda":
+                return self._decode_fn(tuple(u8.shape), max_len, mode, beam_size, temp)(u8)
+            u8 = u8.to(self.device)
+            return generate(self.model, 1.0 - u8.float() / 255.0, max_len=max_len, mode=mode,
+                            generator=self.generator, temp=temp, beam_size=beam_size)
 
     def postprocess(self, row: np.ndarray) -> Tuple[list, str]:
         cfg = self.model.config

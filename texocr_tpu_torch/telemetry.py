@@ -7,6 +7,16 @@
   to stdout and/or a file.
 - ``profile_trace``: a ``torch.profiler`` trace of a block, written as a
   Chrome trace (``chrome://tracing``, Perfetto).
+- ``span``: a named interval at a layer's boundary, recorded only while a
+  ``torch.profiler`` profile runs on the calling thread; ``count``: an
+  always-on counter. ``spans``, ``counters`` and ``reset`` are for readers.
+
+Spans are gated by the profiler itself, so they cost one branch when no
+profile runs and need no switch of their own. A recorded span is a
+``record_function``, so every profiler trace (``profile_trace``'s Chrome
+file included) shows it, nested as the spans nest, on the device trace's
+clock; the in-memory record keeps what the trace does not: the counters
+when it opened and its device time.
 """
 
 from __future__ import annotations
@@ -15,10 +25,10 @@ import contextlib
 import json
 import os
 import time
-from typing import IO, Optional
+from typing import IO, Dict, List, Optional, Union
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 
 @contextlib.contextmanager
@@ -71,3 +81,95 @@ class MetricsLogger:
         if self._file:
             self._file.close()
             self._file = None
+
+
+# -- spans and counters --------------------------------------------------------------
+
+_SPANS: List["Span"] = []
+_COUNTERS: Dict[str, Union[int, float]] = {}
+_NOOP = contextlib.nullcontext()     # what ``span`` returns when no profile runs
+_profiling = torch._C._autograd._profiler_enabled   # thread-local, about 0.2 us
+
+
+class Span:
+    """One recorded span: ``name``; ``counters``, the counters as they stood
+    when it opened, so a profile's first span holds the run's counts up to
+    the profile; and ``device_ms``, the device time between the span's two
+    CUDA events, or None without them. Its host times are its
+    ``record_function`` twin's, in the profile."""
+
+    __slots__ = ("name", "counters", "_events", "_rf")
+
+    def __init__(self, name: str, events):
+        self.name, self._events = name, events
+        self.counters = dict(_COUNTERS)
+
+    def __enter__(self) -> "Span":
+        self._rf = record_function(self.name)
+        self._rf.__enter__()
+        if self._events is not None:
+            self._events[0].record()
+        _SPANS.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._events is not None:
+            self._events[1].record()
+        self._rf.__exit__(*exc)
+        self._rf = None
+
+    @property
+    def device_ms(self) -> Optional[float]:
+        """Waits for the span's end event; None for a span without events."""
+        if self._events is None:
+            return None
+        start, end = self._events
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def __repr__(self) -> str:
+        return f"Span({self.name!r})"
+
+
+def span(name: str, *, device: Optional[Union[torch.device, torch.Tensor]] = None):
+    """A context around one step of a layer. While no ``torch.profiler``
+    profile runs on the calling thread it returns one shared no-op context
+    and records nothing. While one runs it enters
+    ``record_function(name)`` and appends a ``Span`` to the in-memory list.
+    ``device``: a tensor or ``torch.device``; on a CUDA device the span also
+    records a timing event on the current stream at each end, read only
+    when ``Span.device_ms`` is asked for (no synchronisation on the way)."""
+    if not _profiling():
+        return _NOOP
+    events = None
+    if device is not None:
+        dev = device.device if isinstance(device, torch.Tensor) else torch.device(device)
+        if dev.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    return Span(name, events)
+
+
+def count(name: str, value: Union[int, float] = 1) -> None:
+    """Adds ``value`` to the process-wide counter ``name``. Always on. An
+    add is one read and one write under the interpreter lock: two threads
+    adding to one name at the same instant can lose one add, so each of the
+    port's counters has one writing thread (the batcher's worker; captures
+    hold the capture lock)."""
+    if not isinstance(value, (int, float)):
+        raise TypeError(f"counter {name!r}: {type(value).__name__} is not an int or float")
+    _COUNTERS[name] = _COUNTERS.get(name, 0) + value
+
+
+def spans() -> List[Span]:
+    """Every span recorded since the last ``reset``, in the order they opened."""
+    return list(_SPANS)
+
+
+def counters() -> Dict[str, Union[int, float]]:
+    return dict(_COUNTERS)
+
+
+def reset() -> None:
+    """Forgets every recorded span and every counter."""
+    _SPANS.clear()
+    _COUNTERS.clear()

@@ -38,8 +38,8 @@ from texocr_tpu_torch.data.dataset import BOS_CHAR, EOS_CHAR, PAD_CHAR, ImageDat
 from texocr_tpu_torch.training.train_step import (
     TrainState,
     make_eval_step,
-    make_train_step,
     seeded_generator,
+    update,
 )
 from texocr_tpu_torch.utils import pad_to_multiple
 
@@ -265,7 +265,6 @@ def make_chunk_train_step(batch_size: int, *, mask_pad: bool = True, augment: bo
     augmented with a generator seeded from (seed, step) when ``augment``;
     dropout is the train step's own. ``rows``: this data rank's j of the
     ``batch_size`` (all of them by default)."""
-    train_step = make_train_step(mask_pad=mask_pad)
 
     def run(state: TrainState, bucket: DeviceBucket, perm: torch.Tensor, n_steps: int,
             start: int) -> Dict[str, torch.Tensor]:
@@ -273,14 +272,18 @@ def make_chunk_train_step(batch_size: int, *, mask_pad: bool = True, augment: bo
         offsets = torch.arange(batch_size, device=device)[rows or slice(None)]
         loss = torch.zeros((), device=device)
         acc = torch.zeros((), device=device)
-        for s in range(n_steps):
+
+        def batch(s):
             idx = perm[((start + s) * batch_size + offsets) % bucket.n]
             images, labels = gather_batch(bucket, idx)
             if augment:
                 images = augment_batch(
                     images, seeded_generator(device, state.seed, state.step, AUGMENT_TAG),
                     rows, batch_size)
-            metrics = train_step(state, images, labels)
+            return images, labels
+
+        for s in range(n_steps):
+            metrics = update(state, lambda: batch(s), device, mask_pad)
             loss += metrics["loss"]
             acc += metrics["token_acc"]
         return {"loss": loss / max(n_steps, 1), "token_acc": acc / max(n_steps, 1)}

@@ -15,11 +15,12 @@ knows nothing of the model group, so the step does this itself.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
+from texocr_tpu_torch import telemetry
 from texocr_tpu_torch.models.ocr_model import OCRModel
 from texocr_tpu_torch.parallel.layers import all_reduce_grads, all_reduce_sum
 from texocr_tpu_torch.training.losses import sequence_ce_loss
@@ -63,21 +64,36 @@ def _loss_and_acc(model: OCRModel, images, labels, mask_pad: bool, generator=Non
     return loss, acc
 
 
+def update(state: TrainState, batch: Callable[[], Tuple[torch.Tensor, torch.Tensor]],
+           device, mask_pad: bool = True) -> Dict[str, torch.Tensor]:
+    """One update of ``state`` in place on the (images, labels) that
+    ``batch()`` makes on ``device``, with the metrics as device scalars.
+    While a profile runs, its phases are spans with their device time:
+    ``train.forward`` (``batch()``, the forward and the loss),
+    ``train.backward`` and ``train.optimizer`` (the data group's gradient
+    all-reduce and the optimizer's step)."""
+    model = state.model
+    with telemetry.span("train.forward", device=device):
+        images, labels = batch()
+        generator = step_generator(state.seed, state.step, images.device)
+        state.optimizer.zero_grad()  # to None: launches nothing
+        loss, acc = _loss_and_acc(model, images, labels, mask_pad, generator)
+    with telemetry.span("train.backward", device=device):
+        loss.backward()
+    with telemetry.span("train.optimizer", device=device):
+        all_reduce_grads(model.parameters(), model.data)
+        state.optimizer.step()
+    state.step += 1
+    return {"loss": all_reduce_sum(loss.detach(), model.data), "token_acc": acc}
+
+
 def make_train_step(*, mask_pad: bool = True):
     """(state, images, labels) -> {"loss", "token_acc"}: one update of
     ``state`` in place, with the metrics as device scalars."""
 
     def train_step(state: TrainState, images: torch.Tensor,
                    labels: torch.Tensor) -> Dict[str, torch.Tensor]:
-        model = state.model
-        generator = step_generator(state.seed, state.step, images.device)
-        state.optimizer.zero_grad()
-        loss, acc = _loss_and_acc(model, images, labels, mask_pad, generator)
-        loss.backward()
-        all_reduce_grads(model.parameters(), model.data)
-        state.optimizer.step()
-        state.step += 1
-        return {"loss": all_reduce_sum(loss.detach(), model.data), "token_acc": acc}
+        return update(state, lambda: (images, labels), images.device, mask_pad)
 
     return train_step
 
