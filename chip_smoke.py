@@ -17,6 +17,19 @@ Phases, each fatal on failure:
      with L2-warm and L2-cold inputs; and at phase 16's per-rank training
      shapes (RANK_SHAPES: (64, 8, 631, 64) and (32, 4, 631, 64) in bf16),
      checked and timed beside the bound and the library call.
+ 3b. decode attention: the decode step's attention kernel
+     (csrc/decode_attention.cu; it replaces no Pallas kernel) against its
+     plain version at the main path's calls (ops.bench.DECODE_CASES: the
+     cross cache of 256 full canvases in bf16 and int8, the self cache at
+     t = 255 plain and int8 split (t0 = 224), the served batch of 16 at both
+     canvases, beam 5, a key mask, float32), each on DA_SEEDS seeds. Fatal
+     outside ops.bench.decode_gaps's limits (float32 sums in another order:
+     at most 0.1% of bf16 outputs more than one bf16 ulp from the plain
+     version's, each within 2^-7 of its row's largest |output|; float32
+     within 2e-6). Prints ptxas's registers per instantiation, the worst
+     reading of each call over the seeds, and the kernel's time beside its
+     bound (bytes), the plain version and scaled_dot_product_attention. Its
+     launches on the main path are counted in phases 5 and 9.
   4. golden: the committed reference goldens through the port on the card in
      float32 (kernel path): exact greedy tokens, encoder output within 1e-4;
      the float32 kernel's launch count is read from this phase.
@@ -25,7 +38,8 @@ Phases, each fatal on failure:
      batches of 8 full canvases through TexOCR, whose CUDA engine decodes
      through CUDA graphs: each key's first call (its capture) comes first, and
      each is timed REPEATS times (median); launch counts are read from this
-     phase only.
+     phase only: flash 4 an encode, decode attention 8 a decoded step (2
+     a decoder layer, bf16 caches).
   6. profile: where the eager path's serving time goes, for a batch of 8 full
      canvases: encode and a DECODE_STEPS-step greedy decode, wall time (host
      clock) and device kernels (torch.profiler, CUDA activity).
@@ -78,8 +92,9 @@ Phases, each fatal on failure:
      DECODE_STEPS steps without EOS, through TexOCR.generate_batch. Fatal:
      the int8 caches' step logits within 5% of the largest |logit| of the
      unquantized cache's, over each row's steps up to its first differing
-     token. Prints the share of tokens that agree (the decode's times are
-     phase 6b's).
+     token, and the decode attention kernel launched 8 times a decoded step
+     on the int8 caches. Prints the share of tokens that agree (the decode's
+     times are phase 6b's).
  10. sample: float32, 2 full canvases, SAMPLE_CHECK_STEPS steps at temperature
      1e-4 against greedy (a row may leave greedy only at a step whose top two
      logits lie within 20 x temp, where the Gumbel noise can decide); bf16, 8
@@ -325,6 +340,11 @@ PARALLEL_DECODE_MODES = ("greedy", "sample", "beam", "int8")
 RANK_SHAPES = ((64, 8, 631, torch.bfloat16), (32, 4, 631, torch.bfloat16),
                (2, 4, 631, torch.float32), (1, 8, 631, torch.float32),
                (2, 8, 9, torch.float32))
+# Phase 3b: the DECODE_CASES calls timed, and the seeds each call is checked on.
+DA_TIMED = ("cross (256, 8, 631) bf16", "cross (256, 8, 631) int8", "self (256, 8) t 255",
+            "self (256, 8) t 255 split 224", "cross (16, 8, 631) bf16", "cross (16, 8, 631) int8",
+            "cross (16, 8, 129) bf16")
+DA_SEEDS = 6
 ORBAX_FIXTURE = os.path.join(REPO, "tests", "goldens", "jax_orbax_fixture")
 ORBAX_FIXTURE_SEED = 13
 ORBAX_RESUME_RTOL = RESUME_RTOL  # phase 18's resumed epoch from the JAX layout against state.pt's
@@ -733,6 +753,7 @@ def to_input(batch) -> torch.Tensor:
 def serve(fa, rng):
     """The flagship model at full width, bf16, seeded random weights."""
     from texocr_tpu_torch.config import FLAGSHIP
+    from texocr_tpu_torch.ops import decode_attention as da
 
     engine = flagship_engine()
     requests = [canvas(rng, 160, 1008), canvas(rng, 96, 512), canvas(rng, 32, 128)]
@@ -748,6 +769,8 @@ def serve(fa, rng):
     capture_s = time.perf_counter() - t0
 
     fa.flash_attention.launches = 0
+    da.launches = 0
+    steps = 0  # decoded, over every request and batch below
     request_s = []
     for img in requests:
         times = []
@@ -757,6 +780,7 @@ def serve(fa, rng):
             times.append(time.perf_counter() - t0)
             if not all(0 <= i < 1000 for i in ids) or not isinstance(latex, str):
                 raise AssertionError(f"bad request output: {ids[:10]} {latex!r}")
+            steps += request_steps(engine, ids)
         request_s.append(float(np.median(times)))
         log(f"[serve] request {img.shape}: {len(ids)} tokens, median {request_s[-1] * 1e3:.1f} ms "
             f"of {[round(t * 1e3, 1) for t in times]} ms, latex {latex[:40]!r}")
@@ -766,8 +790,10 @@ def serve(fa, rng):
         tokens = engine.generate_batch(batch, max_len=DECODE_STEPS)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        steps += batch_steps(engine, tokens)
     batch_s = float(np.median(times))
     launches = fa.flash_attention.launches  # all bfloat16: the bfloat16 kernel's
+    decode_launches = expect_decode_launches(engine, steps, "serve")
     tokens = tokens.cpu().numpy()
     if tokens.shape != (BATCH, DECODE_STEPS) or tokens.min() < 0 or tokens.max() >= 1000:
         raise AssertionError(f"bad batch tokens: shape {tokens.shape}")
@@ -777,12 +803,14 @@ def serve(fa, rng):
     n_layers = FLAGSHIP["encoder"]["num_layers"]
     log(f"[serve] batch of {BATCH} (160, 1008): median {batch_s:.3f} s of "
         f"{[round(t, 3) for t in times]} s, {BATCH / batch_s:.2f} img/s; "
-        f"flash launches {launches} for {encodes} encodes; the 4 keys' first calls (CUDA "
-        f"graph capture) {capture_s:.1f} s")
+        f"flash launches {launches} for {encodes} encodes; decode attention launches "
+        f"{decode_launches['launches']} over {steps} decoded steps; the 4 keys' first calls "
+        f"(CUDA graph capture) {capture_s:.1f} s")
     if launches != n_layers * encodes:
         raise AssertionError(f"expected {n_layers} flash launches per encode, got {launches}")
     return {"request_s": request_s, "batch_s": batch_s, "launches": launches,
-            "first_calls_s": capture_s, "engine": engine, "batch": batch}
+            "decode_launches": decode_launches, "first_calls_s": capture_s, "engine": engine,
+            "batch": batch}
 
 
 def device_kernels(fn, span=None) -> dict:
@@ -1201,6 +1229,97 @@ def time_rank_shapes(fa, gen) -> list:
     return rows
 
 
+def decode_attention_phase() -> dict:
+    """Phase 3b: the decode-attention kernel (csrc/decode_attention.cu). Its
+    build (ptxas registers and spills per instantiation); each DECODE_CASES
+    call against its plain version on the card, on DA_SEEDS seeds, and its
+    worst reading over them; the DA_TIMED calls timed (CUDA-graph replays,
+    L2-warm) beside their bound (bytes at 3.35 TB/s), the plain version and
+    scaled_dot_product_attention where one computes the same (the
+    compute-type caches). The main path's launches are counted in serve()
+    and int8_phase()."""
+    from texocr_tpu_torch.ops import bench, build
+    from texocr_tpu_torch.ops import decode_attention as da
+
+    start = time.perf_counter()
+    _, build_log = build.build(da.SOURCE)
+    log(f"[decode attention] {da.SOURCE} built in {time.perf_counter() - start:.1f} s")
+    for line in build_log.splitlines():
+        if any(word in line for word in ("entry function", "registers", "spill", "warning")):
+            log(f"[decode attention]   {line.strip()}")
+    scale = 64 ** -0.5
+    rows = {}
+    for name, (kind, args) in bench.DECODE_CASES.items():
+        worst = {}
+        for seed in range(DA_SEEDS):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            q, call, kernel, plain, keys = bench.decode_case(gen, kind, args, scale)
+            before = da.launches
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if da.launches != before + 1:
+                raise AssertionError(f"decode attention {name}: {da.launches - before} launches")
+            gaps = bench.decode_gaps(got, want)
+            if not gaps.pop("ok"):
+                raise AssertionError(f"decode attention kernel disagrees with its plain version: "
+                                     f"{name}, seed {seed}: {json.dumps(gaps)}")
+            worst = {key: max(value, worst.get(key, value)) for key, value in gaps.items()}
+        row = dict(worst, seeds=DA_SEEDS)
+        log(f"[decode attention] {name}, kernel vs plain, worst of {DA_SEEDS} seeds: "
+            f"{json.dumps(worst)} ok")
+        if name in DA_TIMED:
+            row.update(shape=list(q.shape), keys=call["n"], int8_keys=call["n8"],
+                       bound_ms=bench.decode_attention_bound_ms(q, call), ms=time_ms(kernel),
+                       plain_ms=time_ms(plain, iters=5))
+            if keys is not None:
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                row["library_ms"] = time_ms(lambda: sdpa(q, *keys, scale=scale))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            log(f"[decode attention] {name} timing: " + json.dumps(row))
+        rows[name] = row
+    return rows
+
+
+def expect_decode_launches(engine, steps, what) -> dict:
+    """The decode attention launches counted since the reset: 2 a decoder
+    layer a decoded step (self and cross attention)."""
+    from texocr_tpu_torch.ops import decode_attention as da
+
+    expected = 2 * engine.model.config.decoder.num_layers * steps
+    if da.launches != expected:
+        raise AssertionError(f"{what}: expected {expected} decode attention launches over "
+                             f"{steps} decoded steps, got {da.launches}")
+    return {"launches": da.launches, "steps": steps}
+
+
+def batch_steps(engine, tokens) -> int:
+    """The steps the engine's chunked decode ran, from its (B, max_len) tokens."""
+    from texocr_tpu_torch.models.attention import chunk_size
+
+    cfg = engine.model.config
+    chunk = chunk_size(tokens.shape[1], cfg.decoder.max_length)[1]
+    return decoded_steps(tokens, cfg.eos_token, chunk)
+
+
+def request_steps(engine, ids) -> int:
+    """The steps a served request's decode ran, from its token ids (up to and
+    excluding EOS; DECODE_STEPS without one)."""
+    row = torch.full((1, DECODE_STEPS), engine.model.config.eos_token)
+    row[0, :len(ids)] = torch.tensor(ids, dtype=row.dtype)
+    return batch_steps(engine, row)
+
+
+def decoded_steps(tokens, eos, chunk) -> int:
+    """The steps a chunked decode ran for these tokens: it stops after the
+    first chunk at whose end every row has emitted EOS."""
+    steps = tokens.shape[1]
+    hit = (tokens == eos)
+    if not bool(hit.any(1).all()):
+        return steps
+    first = hit.int().argmax(1)
+    return min(steps, (int(first.max()) // chunk + 1) * chunk)
+
+
 def train(fa, rng, data_dir=None) -> dict:
     """Phase 8: the training path on the card (see the module docstring).
     ``data_dir``: where to write the dataset and leave it (phase 16 trains
@@ -1522,14 +1641,18 @@ def decode_profile(fn, steps) -> dict:
 def int8_phase(fa, batch) -> dict:
     """Phase 9: int8 cross- and self-attention K/V on 8 full canvases."""
     from texocr_tpu_torch.models import greedy_decode
+    from texocr_tpu_torch.ops import decode_attention as da
 
     engine = flagship_engine(kv_quant="int8", self_kv_quant="int8")
     engine.generate_batch(batch, max_len=DECODE_STEPS)  # the key's capture
     torch.cuda.synchronize()
     fa.flash_attention.launches = 0
+    da.launches = 0
     tokens = engine.generate_batch(batch, max_len=DECODE_STEPS)
     torch.cuda.synchronize()
     launches = expect_launches(fa, 1, "int8 generate_batch")
+    decode_launches = expect_decode_launches(engine, batch_steps(engine, tokens),
+                                             "int8 generate_batch")
     if tokens.shape != (BATCH, DECODE_STEPS):
         raise AssertionError(f"int8 tokens of shape {tuple(tokens.shape)}")
 
@@ -1552,11 +1675,13 @@ def int8_phase(fa, batch) -> dict:
         f"{DECODE_STEPS} steps: max|logit err| {err:.4f} / max|logit| {scale:.4f} = "
         f"{err / scale:.5f} (budget {INT8_BUDGET}) over each row's steps up to its first "
         f"differing token (first differences {first.tolist()}); tokens agreeing "
-        f"{100 * agree:.1f}%; flash launches {launches} for 1 encode (decode times: phase 6b) "
-        f"{'ok' if ok else 'FAIL'}")
+        f"{100 * agree:.1f}%; flash launches {launches} for 1 encode; decode attention "
+        f"launches {decode_launches['launches']} over {decode_launches['steps']} decoded steps "
+        f"(decode times: phase 6b) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("int8 decode logits outside the int8 budget")
-    return {"launches": launches, "encodes": 1, "err_ratio": err / scale,
+    return {"launches": launches, "encodes": 1, "decode_launches": decode_launches,
+            "err_ratio": err / scale,
             "tokens_agree": agree, "first_difference": first.tolist()}
 
 
@@ -3240,6 +3365,7 @@ def main() -> int:
     errors = phase("kernels", check_flash_kernel, fa, gen)
     timings = phase("kernel timing", time_flash, fa, gen)
     rank_rows = phase("rank shape timing", time_rank_shapes, fa, gen)
+    decoded = phase("decode attention", decode_attention_phase)
     f32_launches = phase("golden", check_golden, fa)
     rng = np.random.default_rng(0)
     served = phase("serve", serve, fa, rng)
@@ -3317,6 +3443,15 @@ def main() -> int:
            for k, v in interchange["resume"].items()},
         **{f"serve from the {k}": {"launches": v["launches"], "encodes": 1}
            for k, v in interchange["serve"].items()}})
+    kernels.append(dict(
+        name="decode_attention",
+        route="cuda",
+        source="texocr_tpu_torch/csrc/decode_attention.cu",
+        replaces=None,  # JAX's decode attention is XLA einsum
+        launches={"serve (bfloat16 caches)": served["decode_launches"],
+                  "int8 (int8 caches)": paths["int8"]["decode_launches"]},
+        calls=decoded,
+    ))
     log(json.dumps({"kernels": kernels}))
     log(f"[serve] median per-request s {served['request_s']}, batch img/s "
         f"{BATCH / served['batch_s']} on {card}")

@@ -15,7 +15,10 @@ Decode cache: the JAX package splits its self-attention cache into a merged
 GPU an in-place write of one position is cheap, so the port keeps one plain
 (B, H, T, dh) buffer per layer, writes position t in place, and attends over
 positions 0..t. The numbers agree: the JAX softmax over ``[big | hot]`` with a
--f32max fill is a softmax over exactly those t + 1 positions.
+-f32max fill is a softmax over exactly those t + 1 positions. Both attentions
+of a cached step (``MultiHeadAttention.step`` and ``attend_cached_kv``) go to
+``ops/decode_attention``: a kernel that reads the cache in place on the card,
+its plain version on the CPU. The full forward keeps ``attention_core``.
 
 int8 caches copy the JAX package's numbers, not its layout:
 
@@ -24,7 +27,8 @@ int8 caches copy the JAX package's numbers, not its layout:
   chunk of ``DECODE_CHUNK`` positions when it merges the chunk's hot window
   into its prefix, so ``chunk_start`` quantizes positions [t0 - chunk, t0)
   before step t0 and a step attends over the int8 prefix [0, t0) and the
-  full-precision positions [t0, t] with one softmax, as ``_attend_split``.
+  full-precision positions [t0, t] with one softmax
+  (``ops/decode_attention.self_attention``).
 - ``kv_quant="int8"``: the cross-attention K/V quantized once per sequence,
   scales per (B, H, dh) over the keys; K's scale folds into q before the dot
   and V's multiplies the output.
@@ -50,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from texocr_tpu_torch import telemetry
 from texocr_tpu_torch.models.layers import MLP, TorchDense
+from texocr_tpu_torch.ops import decode_attention
 from texocr_tpu_torch.ops.attention_core import attention_core, math_attention
 from texocr_tpu_torch.parallel.layers import copy_to_model, row_parallel
 from texocr_tpu_torch.parallel.mesh import NO_AXIS, MeshAxis
@@ -135,24 +140,6 @@ def reorder_cache(cache: KVCache, rows: torch.Tensor, spare: KVCache) -> None:
         for name, buf in layer.items():
             torch.index_select(buf, 0, rows, out=other[name])
             layer[name], other[name] = other[name], buf
-
-
-def _attend_split(q, cache, t0: int, t: int, scale: float) -> torch.Tensor:
-    """One query over the int8 prefix [0, t0) and the full-precision positions
-    [t0, t] with one float32 softmax (the JAX package's ``_attend_split``): K's
-    scales multiply the logits after the dot, V's the probabilities after
-    their cast to the compute type. q: (B, H, 1, dh)."""
-    dtype = q.dtype
-    qf = q.float()
-    s_hot = torch.matmul(qf, cache["k"][:, :, t0: t + 1].float().transpose(-1, -2)) * scale
-    s_big = torch.matmul(qf, cache["k8"][:, :, :t0].to(dtype).float().transpose(-1, -2)) * scale
-    s_big = s_big * cache["sk"][:, :, None, :t0].float()
-    probs = torch.softmax(torch.cat([s_big, s_hot], dim=-1), dim=-1)
-    p_big = probs[..., :t0].to(dtype) * cache["sv"][:, :, None, :t0]
-    p_hot = probs[..., t0:].to(dtype)
-    out = (torch.matmul(p_big.float(), cache["v8"][:, :, :t0].to(dtype).float())
-           + torch.matmul(p_hot.float(), cache["v"][:, :, t0: t + 1].float()))
-    return out.to(dtype)
 
 
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -251,11 +238,7 @@ class MultiHeadAttention(nn.Module):
         k, v = self._kv(x_t)
         cache["k"][:, :, t] = k[:, :, 0]
         cache["v"][:, :, t] = v[:, :, 0]
-        if "k8" in cache:
-            return self._finish(_attend_split(q, cache, t0, t, self.scale))
-        out = math_attention(q, cache["k"][:, :, : t + 1], cache["v"][:, :, : t + 1],
-                             scale=self.scale)
-        return self._finish(out)
+        return self._finish(decode_attention.self_attention(q, cache, t, t0, scale=self.scale))
 
     def attend_cached_kv(self, x_t: torch.Tensor, kv: Dict[str, torch.Tensor],
                          key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -270,12 +253,7 @@ class MultiHeadAttention(nn.Module):
         beam = q.shape[0] // batch
         # (B, H, beam, dh): an image's beams are the queries of one attention.
         q = q.view(batch, beam, self.heads, -1).transpose(1, 2)
-        allowed = None if key_mask is None else key_mask[:, None, None, :]
-        if "k8" in kv:
-            out = math_attention(q * kv["sk"], kv["k8"].to(q.dtype), kv["v8"].to(q.dtype),
-                                 scale=self.scale, allowed=allowed) * kv["sv"]
-        else:
-            out = math_attention(q, kv["k"], kv["v"], scale=self.scale, allowed=allowed)
+        out = decode_attention.cross_attention(q, kv, scale=self.scale, key_mask=key_mask)
         out = out.transpose(1, 2).reshape(batch * beam, self.heads, 1, -1)
         return self._finish(out)
 

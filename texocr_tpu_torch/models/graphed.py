@@ -27,10 +27,10 @@ runs, the encode replay is a ``decode.encode`` span with its device time, as
 each chunk's replay is a ``decode.chunk`` span; every key adds its warm-up and
 capture seconds to the counter ``graphs.capture_s`` (and to ``capture_s``),
 and 1 to ``graphs.keys``. A replay
-launches the flash kernel without passing through its wrapper, so each graph
-keeps the count of flash launches its capture made and adds it to
-``flash_attention.launches`` when it replays; a capture itself launches
-nothing on the device and counts nothing.
+launches the kernels without passing through their wrappers, so each graph
+keeps the counts of launches its capture made and adds them to
+``flash_attention.launches`` and ``decode_attention.launches`` when it
+replays; a capture itself launches nothing on the device and counts nothing.
 
 Capture follows ``torch.cuda.graphs``' rules: every region runs once
 eagerly on a side stream first (cuDNN's and cuBLAS's first calls at a shape,
@@ -58,10 +58,13 @@ from texocr_tpu_torch import telemetry
 from texocr_tpu_torch.models.attention import decode_chunks
 from texocr_tpu_torch.models.generate import check_mode, decode_state
 from texocr_tpu_torch.models.ocr_model import OCRModel
-from texocr_tpu_torch.ops import flash_attention
+from texocr_tpu_torch.ops import decode_attention, flash_attention
 
 # CUDA allows one stream capture at a time in a process.
 _CAPTURE_LOCK = threading.Lock()
+
+#: The launch counters a replay adds to: each holds an integer ``launches``.
+_COUNTERS = (flash_attention.flash_attention, decode_attention)
 
 
 class GraphedGenerate:
@@ -128,24 +131,27 @@ class GraphedGenerate:
             self.generator.set_state(rng)
 
     def _capture(self, fn):
-        """(a graph of ``fn()`` with its flash launch count, what ``fn``
+        """(a graph of ``fn()`` with its launch counts, what ``fn``
         returned: tensors of the graph's pool that every replay rewrites)."""
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
-        before = flash_attention.flash_attention.launches
+        before = [c.launches for c in _COUNTERS]
         with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
                               capture_error_mode="thread_local"):
             out = fn()
-        launches = flash_attention.flash_attention.launches - before
-        flash_attention.flash_attention.launches = before
+        launches = []
+        for counter, n in zip(_COUNTERS, before):
+            launches.append(counter.launches - n)
+            counter.launches = n
         return (graph, launches), out
 
     @staticmethod
     def _replay(entry) -> None:
         graph, launches = entry
         graph.replay()
-        flash_attention.flash_attention.launches += launches
+        for counter, n in zip(_COUNTERS, launches):
+            counter.launches += n
 
     def encode(self) -> None:
         with telemetry.span("decode.encode", device=self.images):
