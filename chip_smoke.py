@@ -30,7 +30,19 @@ Phases, each fatal on failure:
      reading of each call over the seeds, and the kernel's time beside its
      bound (bytes), the plain version and scaled_dot_product_attention. Its
      launches on the main path are counted in phases 5 and 9.
-  4. golden: the committed reference goldens through the port on the card in
+  3c. routed experts: the expert kernels (ops/moe_experts.py, Triton; they
+     replace no Pallas kernel) against the expert loop at decode's (1,536
+     rows) and prefill's (245,760) shapes, timed beside their bound; a
+     3-layer model at Kimi-VL-A3B's widths whose 8-chunk graphs' tokens are
+     bit-equal to the eager decode's; then kimivl.batch's own path:
+     TexOCR with portbench/configs/kimi-vl-a3b.json whole (27 layers),
+     its state dict taken in place, generate_batch on 256 full canvases x
+     256 greedy steps. Fatal: moe_experts.launches, zeroed just before each
+     replayed call, unequal to 2 x 26 x (1 + 256), the call's moe.expert_rows
+     unequal to 256 x (160 + 256) x 6 x 26, or an EOS served (its head row is
+     zeroed, so every row decodes to max_len). The kernels line reports
+     that call's count.
+ 4. golden: the committed reference goldens through the port on the card in
      float32 (kernel path): exact greedy tokens, encoder output within 1e-4;
      the float32 kernel's launch count is read from this phase.
   5. serve: the flagship configuration at full width in bfloat16 with seeded
@@ -345,6 +357,23 @@ DA_TIMED = ("cross (256, 8, 631) bf16", "cross (256, 8, 631) int8", "self (256, 
             "self (256, 8) t 255 split 224", "cross (16, 8, 631) bf16", "cross (16, 8, 631) int8",
             "cross (16, 8, 129) bf16")
 DA_SEEDS = 6
+# Phase 3c: the routed-expert kernels at Kimi-VL-A3B's widths (64 experts of
+# 1408 over hidden 2048, 6 chosen a token): decode's 256 tokens (1,536 rows)
+# and prefill's 256 x 160 (245,760 rows); the gate on the kernels against
+# their plain arithmetic (max |difference| / max |output|: float32 sums in
+# another order, the intermediate rounded to bfloat16 on both sides); and the
+# 8-chunk graphs of a 3-layer model at those widths (1 dense, 2 expert layers).
+MOE_SHAPES = {"decode": 256, "prefill": 256 * 160}
+MOE_WIDTHS = (64, 1408, 2048, 6)  # experts, expert width, hidden, chosen a token
+MOE_TOL = 5e-3
+MOE_GRAPH_LAYERS = 3
+MOE_GRAPH_BATCH = 8
+MOE_GRAPH_STEPS = 256
+# kimivl.batch's shape through TexOCR.generate_batch: 256 canvases of
+# (160, 1008), 256 greedy steps; replayed calls checked and timed.
+MOE_MAIN_BATCH = 256
+MOE_MAIN_STEPS = 256
+MOE_MAIN_CALLS = 2
 ORBAX_FIXTURE = os.path.join(REPO, "tests", "goldens", "jax_orbax_fixture")
 ORBAX_FIXTURE_SEED = 13
 ORBAX_RESUME_RTOL = RESUME_RTOL  # phase 18's resumed epoch from the JAX layout against state.pt's
@@ -1277,6 +1306,192 @@ def decode_attention_phase() -> dict:
             row["bound_share"] = row["bound_ms"] / row["ms"]
             log(f"[decode attention] {name} timing: " + json.dumps(row))
         rows[name] = row
+    return rows
+
+
+def moe_loop(x, ids, w, wg, wu, wd) -> torch.Tensor:
+    """The routed product one expert at a time, with the kernels' roundings:
+    float32 products of the bfloat16 values, silu(gate) * up rounded to
+    bfloat16, the weighted down product summed in float32."""
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(wg.shape[0]):
+        rows, slot = (ids == e).nonzero(as_tuple=True)
+        if rows.numel():
+            a = x[rows].float()
+            h = (torch.nn.functional.silu(a @ wg[e].float().t()) * (a @ wu[e].float().t()))
+            y = h.to(x.dtype).float() @ wd[e].float().t()
+            out.index_add_(0, rows, y * w[rows, slot][:, None])
+    return out
+
+
+def moe_bound_ms(tokens, touched) -> tuple:
+    """(least ms, "bytes" or "operations") of one layer's two launches:
+    tokens in, the touched experts' weights, the (token, choice) rows'
+    intermediate out and in, their float32 outputs and weights, at 3.35 TB/s,
+    against 2 x rows x 3 x D x I operations at 989 TFLOP/s."""
+    _, inter, hidden, k = MOE_WIDTHS
+    rows = tokens * k
+    moved = (tokens * hidden * 2 + touched * 3 * inter * hidden * 2 + 2 * rows * inter * 2
+             + rows * hidden * 4 + rows * 4)
+    t_bytes, t_ops = moved / 3.35e12 * 1e3, 2.0 * rows * 3 * hidden * inter / 989e12 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def moe_graph_check() -> dict:
+    """A 3-layer mla_moe model at Kimi-VL-A3B's widths, drawn on the card:
+    its 8-chunk graphs' tokens against the eager decode's (bit-equal), the
+    launches a call adds to ``moe_experts.launches`` (2 an expert layer for
+    the prefill and every step), and the rows it adds to ``moe.expert_rows``."""
+    from texocr_tpu_torch import telemetry
+    from texocr_tpu_torch.models import generate
+    from texocr_tpu_torch.models.graphed import make_graphed_generate
+    from texocr_tpu_torch.models.moe import EXPERT_ROWS
+    from texocr_tpu_torch.models.ocr_model import create_model
+    from texocr_tpu_torch.ops import moe_experts
+
+    cfg = json.load(open(os.path.join(REPO, "portbench", "configs", "kimi-vl-a3b.json")))["model"]
+    cfg = dict(cfg, decoder=dict(cfg["decoder"], num_hidden_layers=MOE_GRAPH_LAYERS))
+    model = create_model(cfg, device="cuda", seed=3).eval()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    u8 = torch.randint(0, 256, (MOE_GRAPH_BATCH, 160, 1008, 1), dtype=torch.uint8,
+                       device="cuda", generator=gen)
+    start = time.perf_counter()
+    engine = make_graphed_generate(model, MOE_GRAPH_BATCH, (160, 1008), MOE_GRAPH_STEPS)
+    capture_s = time.perf_counter() - start
+    rows = telemetry.device_counters()[EXPERT_ROWS]
+    moe_experts.launches = 0
+    graphed = engine(u8)
+    torch.cuda.synchronize()
+    launches = moe_experts.launches
+    routed = int((telemetry.device_counters()[EXPERT_ROWS] - rows).sum())
+    with torch.inference_mode():
+        eager = generate(model, 1.0 - u8.float() / 255.0, max_len=MOE_GRAPH_STEPS)
+    moe_layers = MOE_GRAPH_LAYERS - cfg["decoder"]["first_k_dense_replace"]
+    want = 2 * moe_layers * (1 + MOE_GRAPH_STEPS)
+    want_rows = MOE_GRAPH_BATCH * (160 + MOE_GRAPH_STEPS) * MOE_WIDTHS[3] * moe_layers
+    if launches != want or routed != want_rows:
+        raise AssertionError(f"moe graphs: {launches} launches and {routed} routed rows a call, "
+                             f"expected {want} and {want_rows}")
+    if not torch.equal(graphed, eager):
+        raise AssertionError("moe graphs: graphed tokens differ from the eager decode's")
+    out = {"launches_per_call": launches, "routed_rows": routed, "chunks": engine.state.n_chunks,
+           "capture_s": capture_s, "call_s": wall_s(lambda: engine(u8).cpu())}
+    del engine, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def routed_rows_now() -> int:
+    """The program's ``moe.expert_rows`` summed (0 before its first add)."""
+    from texocr_tpu_torch import telemetry
+    from texocr_tpu_torch.models.moe import EXPERT_ROWS
+
+    rows = telemetry.device_counters().get(EXPERT_ROWS)
+    return 0 if rows is None else int(rows.sum())
+
+
+def moe_main_path() -> dict:
+    """kimivl.batch's path: ``TexOCR`` with the kimi-vl-a3b configuration
+    whole, its state dict (drawn on the card, EOS's head row zeroed) taken in
+    place, ``generate_batch`` at the cell's shape. The first call captures;
+    before each of ``MOE_MAIN_CALLS`` replayed calls ``moe_experts.launches``
+    is zeroed, and after it must read 2 x expert layers x (1 + steps): the
+    prefill and every step, through the graphs' replay counts."""
+    from texocr_tpu_torch.models.ocr_model import create_model
+    from texocr_tpu_torch.ops import moe_experts
+    from texocr_tpu_torch.serving.wrapper import TexOCR
+
+    cfg = json.load(open(os.path.join(REPO, "portbench", "configs", "kimi-vl-a3b.json")))["model"]
+    dec = cfg["decoder"]
+    moe_layers = dec["num_hidden_layers"] - dec["first_k_dense_replace"]
+    head = "language_model.lm_head.weight"
+    torch.cuda.reset_peak_memory_stats()
+    params = create_model(cfg, device="cuda", seed=11).state_dict()
+    params[head][cfg["eos_token"]].zero_()
+    engine = TexOCR(cfg, device="cuda", state_dict=params)
+    if engine.model.language_model.lm_head.weight.data_ptr() != params[head].data_ptr():
+        raise AssertionError("moe main path: the engine copied the state dict")
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    del params
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    u8 = torch.randint(0, 256, (MOE_MAIN_BATCH, 160, 1008, 1), dtype=torch.uint8,
+                       device="cuda", generator=gen)
+    want = 2 * moe_layers * (1 + MOE_MAIN_STEPS)
+    (h, w), (mh, mw) = engine.model.encoder.feature_grid(160, 1008), dec["merge"]
+    prefix = -(-h // mh) * -(-w // mw)  # 160 image tokens
+    want_rows = (MOE_MAIN_BATCH * (prefix + MOE_MAIN_STEPS) * dec["num_experts_per_tok"]
+                 * moe_layers)
+    start = time.perf_counter()
+    engine.generate_batch(u8, max_len=MOE_MAIN_STEPS).cpu()
+    capture_s = time.perf_counter() - start
+    calls = []
+    for _ in range(MOE_MAIN_CALLS):
+        rows = routed_rows_now()
+        moe_experts.launches = 0
+        start = time.perf_counter()
+        tokens = engine.generate_batch(u8, max_len=MOE_MAIN_STEPS).cpu()
+        call_s = time.perf_counter() - start
+        launches, routed = moe_experts.launches, routed_rows_now() - rows
+        if launches != want or routed != want_rows:
+            raise AssertionError(f"moe main path: {launches} launches and {routed} routed rows "
+                                 f"a call, expected {want} and {want_rows}")
+        if bool((tokens == cfg["eos_token"]).any()):
+            raise AssertionError("moe main path: a row served EOS with its logit pinned at 0")
+        calls.append({"launches": launches, "routed_rows": routed, "call_s": call_s,
+                      "images_per_s": MOE_MAIN_BATCH / call_s})
+    out = {"shape": [MOE_MAIN_BATCH, 160, 1008, MOE_MAIN_STEPS], "capture_s": capture_s,
+           "weights_gb": weights_gb, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "calls": calls}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_experts_phase() -> dict:
+    """Phase 3c: the routed-expert kernels (``ops/moe_experts.py``, Triton)
+    at Kimi-VL-A3B's widths, decode's and prefill's row counts: each against
+    the expert loop with the kernels' roundings (``MOE_TOL``), the kernels'
+    time (their two launches alone, CUDA-graph replays) beside their bound
+    and the plain version's time where it fits; then ``moe_graph_check``."""
+    from texocr_tpu_torch.ops import moe_experts
+
+    n_experts, inter, hidden, k = MOE_WIDTHS
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    weights = [(torch.randn(shape, generator=gen, device="cuda") * 0.02).bfloat16()
+               for shape in ((n_experts, inter, hidden), (n_experts, inter, hidden),
+                             (n_experts, hidden, inter))]
+    rows = {}
+    for name, tokens in MOE_SHAPES.items():
+        x = torch.randn(tokens, hidden, generator=gen, device="cuda").bfloat16()
+        scores = torch.randn(tokens, n_experts, generator=gen, device="cuda")
+        ids = torch.topk(scores, k, dim=-1).indices
+        w = torch.softmax(scores.gather(1, ids), -1) * 2.446
+        start = time.perf_counter()
+        got, counts = moe_experts.routed(x, ids, w, *weights)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - start
+        want = moe_loop(x, ids, w, *weights)
+        gap = float((got - want).abs().max() / want.abs().max())
+        if gap > MOE_TOL:
+            raise AssertionError(f"moe experts {name}: kernels vs loop {gap:.3g} > {MOE_TOL}")
+        tile = moe_experts.tiles(tokens * k, n_experts)
+        aligned = moe_experts.align(ids, n_experts, tile["gate_up"][0])
+        kernels_ms = time_ms(lambda: moe_experts.launch(x, w, *weights, aligned, tile))
+        bound_ms, bound_by = moe_bound_ms(tokens, int((counts > 0).sum()))
+        row = {"tokens": tokens, "rows": tokens * k, "gap": gap, "first_call_s": first_s,
+               "ms": kernels_ms, "routed_ms": time_ms(
+                   lambda: moe_experts.routed(x, ids, w, *weights)),
+               "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / kernels_ms,
+               "loop_ms": event_ms(lambda: moe_loop(x, ids, w, *weights), iters=2)}
+        if name == "decode":
+            row["plain_ms"] = event_ms(lambda: moe_experts.routed_plain(
+                x, ids, w, *weights, block=tile["down"][0]), iters=3)
+        log(f"[moe experts] {name}: " + json.dumps(row))
+        rows[name] = row
+    rows["graphs"] = moe_graph_check()
+    log("[moe experts] graphs: " + json.dumps(rows["graphs"]))
+    rows["main path"] = moe_main_path()
+    log("[moe experts] main path: " + json.dumps(rows["main path"]))
     return rows
 
 
@@ -3366,6 +3581,7 @@ def main() -> int:
     timings = phase("kernel timing", time_flash, fa, gen)
     rank_rows = phase("rank shape timing", time_rank_shapes, fa, gen)
     decoded = phase("decode attention", decode_attention_phase)
+    routed = phase("moe experts", moe_experts_phase)
     f32_launches = phase("golden", check_golden, fa)
     rng = np.random.default_rng(0)
     served = phase("serve", serve, fa, rng)
@@ -3451,6 +3667,15 @@ def main() -> int:
         launches={"serve (bfloat16 caches)": served["decode_launches"],
                   "int8 (int8 caches)": paths["int8"]["decode_launches"]},
         calls=decoded,
+    ))
+    kernels.append(dict(
+        name="moe_expert_gate_up, moe_expert_down",
+        route="triton",
+        source="texocr_tpu_torch/ops/moe_experts.py",
+        replaces=None,  # the JAX package has no expert layer
+        launches={"kimivl.batch path (TexOCR.generate_batch, 256 x 256 steps), a call":
+                  routed["main path"]["calls"][-1]["launches"]},
+        calls={k: v for k, v in routed.items() if k not in ("graphs", "main path")},
     ))
     log(json.dumps({"kernels": kernels}))
     log(f"[serve] median per-request s {served['request_s']}, batch img/s "

@@ -307,6 +307,20 @@ def test_count_adds_and_reset_forgets():
     assert telemetry.counters() == {} and telemetry.spans() == []
 
 
+def test_a_device_counter_made_under_inference_mode_adds_and_resets_in_place():
+    """A decode under ``inference_mode`` may be the first to ask for a device
+    counter; ``reset`` after it, outside that mode, still zeroes the same
+    tensor (graphs that captured its adds keep its address)."""
+    with torch.inference_mode():
+        counts = telemetry.device_counter("t.rows", (2, 3), "cpu")
+        counts[1].add_(torch.tensor([1, 0, 2]))
+    assert telemetry.device_counter("t.rows", (2, 3), "cpu") is counts
+    assert telemetry.device_counters()["t.rows"].tolist() == [[0, 0, 0], [1, 0, 2]]
+    telemetry.reset()
+    assert telemetry.device_counter("t.rows", (2, 3), "cpu") is counts
+    assert counts.tolist() == [[0, 0, 0], [0, 0, 0]]
+
+
 def test_graph_cache_prints_the_engines_capture_time(capsys):
     class Engine:
         capture_s = 1.25

@@ -25,6 +25,21 @@ encoder's is GeGLU always) and ``decoder.cross_attend`` (false: a decoder
 without cross-attention layers, which trains but has no cached decode, as in
 the JAX package).
 
+Decoder kinds (``decoder.kind``): ``texocr`` (the default) is the
+reference's cross-attending decoder with the keys above; ``mla_moe`` is a
+prefix decoder in the form of Kimi-VL-A3B's language model (DeepSeek-V3's
+layers: multi-head latent attention, sigmoid-routed experts beside shared
+ones, a leading dense layer, RMSNorm and RoPE), read from the published
+``config.json``'s own keys (``MlaMoeConfig``), beside ``projector_hidden``
+(the image projector's hidden width) and ``merge`` (the 2-D pixel shuffle of
+the encoder's grid). Its context is the encoder's image tokens, projected
+and prefilled into its latent cache, not cross-attention K/V. A decoder key
+that the chosen kind does not read raises ``ValueError``, as does a value
+of a published key that the port does not implement. The top-level
+``param_dtype`` (``float32`` or ``bfloat16``) is the type the prefix
+decoder's parameters are held in (``MlaMoeConfig.param_dtype``); the
+encoder's stay float32, as every parameter of the texocr model does.
+
 Decode keys: ``kv_quant`` (``int8`` quantizes the cross-attention K/V once per
 sequence, per (B, H, dh) scales) and ``self_kv_quant`` (``int8`` keeps the
 self-attention prefix in int8 with per-position scales, merged chunk by
@@ -36,7 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Optional, Union
+from typing import Any, ClassVar, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -95,6 +110,12 @@ FLAGSHIP: Dict[str, Any] = {
 
 
 EMBED_LAYERS = ("hybrid", "patch")
+DECODER_KINDS = ("texocr", "mla_moe")
+PARAM_DTYPES = ("float32", "bfloat16")
+
+#: The ``texocr`` decoder's keys.
+TEXOCR_DECODER_KEYS = frozenset(
+    {"kind", "embed_dim", "num_layers", "heads", "cross_attend", "dropout", "exp_factor"})
 
 
 def load_config(config_path: str) -> dict:
@@ -153,12 +174,122 @@ class DecoderConfig:
     glu: bool = True
     exp_factor: int = 4
     dropout: float = 0.0
+    kind: ClassVar[str] = "texocr"
+
+
+@dataclasses.dataclass(frozen=True)
+class MlaMoeConfig:
+    """A DeepSeek-V3-style language model (Kimi-VL-A3B's) as a prefix
+    decoder, under its published ``config.json`` keys. The values the port
+    implements are checked in ``from_dict``: no q LoRA, one expert group,
+    sigmoid scores with ``noaux_tc``'s correction bias, SiLU, no RoPE
+    scaling, no attention bias, an untied head, every layer after the first
+    ``first_k_dense_replace`` an expert layer."""
+    vocab_size: int
+    max_position_embeddings: int
+    hidden_size: int
+    intermediate_size: int
+    moe_intermediate_size: int
+    num_hidden_layers: int
+    num_attention_heads: int
+    num_key_value_heads: int
+    n_shared_experts: int
+    n_routed_experts: int
+    num_experts_per_tok: int
+    routed_scaling_factor: float
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+    first_k_dense_replace: int
+    norm_topk_prob: bool
+    rms_norm_eps: float
+    rope_theta: float
+    projector_hidden: int
+    merge: Tuple[int, int] = (2, 2)
+    param_dtype: str = "float32"
+    kind: ClassVar[str] = "mla_moe"
+
+    #: Published keys whose value is fixed by what the port implements.
+    FIXED = {"q_lora_rank": None, "topk_method": "noaux_tc", "n_group": 1, "topk_group": 1,
+             "scoring_func": "sigmoid", "hidden_act": "silu", "rope_scaling": None,
+             "attention_bias": False, "tie_word_embeddings": False, "moe_layer_freq": 1,
+             "ep_size": 1}
+    #: Published keys read and not used: the auxiliary loss of training.
+    IGNORED = frozenset({"seq_aux"})
+
+    @property
+    def max_length(self) -> int:
+        """Positions of the rotary table: prefix and decoded tokens together."""
+        return self.max_position_embeddings
+
+    @property
+    def moe_layers(self) -> int:
+        return self.num_hidden_layers - self.first_k_dense_replace
+
+    @staticmethod
+    def from_dict(dec: dict, param_dtype: str = "float32") -> "MlaMoeConfig":
+        fields = {f.name for f in dataclasses.fields(MlaMoeConfig)} - {"param_dtype"}
+        unknown = set(dec) - fields - set(MlaMoeConfig.FIXED) - MlaMoeConfig.IGNORED - {"kind"}
+        if unknown:
+            raise ValueError(f"decoder keys not read by kind 'mla_moe': {sorted(unknown)}")
+        for key, value in MlaMoeConfig.FIXED.items():
+            if key in dec and dec[key] != value:
+                raise ValueError(f"decoder {key}={dec[key]!r}: the mla_moe decoder implements "
+                                 f"{value!r} only")
+        args = {k: v for k, v in dec.items() if k in fields}
+        if "merge" in args:
+            args["merge"] = tuple(args["merge"])
+        missing = fields - set(args) - {"merge"}
+        if missing:
+            raise ValueError(f"mla_moe decoder keys missing: {sorted(missing)}")
+        if param_dtype not in PARAM_DTYPES:
+            raise ValueError(f"unknown param_dtype: {param_dtype!r}")
+        cfg = MlaMoeConfig(**args, param_dtype=param_dtype)
+        if cfg.num_key_value_heads != cfg.num_attention_heads:
+            raise ValueError("latent attention has one K/V head per query head")
+        if not 0 <= cfg.first_k_dense_replace <= cfg.num_hidden_layers:
+            raise ValueError("first_k_dense_replace exceeds num_hidden_layers")
+        return cfg
+
+
+def decoder_config(config: dict) -> Union[DecoderConfig, MlaMoeConfig]:
+    """The ``decoder`` block of a config dict, by its ``kind``."""
+    dec = config["decoder"]
+    kind = dec.get("kind", "texocr")
+    if kind not in DECODER_KINDS:
+        raise ValueError(f"unknown decoder kind: {kind!r}; known: {DECODER_KINDS}")
+    if kind == "mla_moe":
+        return MlaMoeConfig.from_dict(dec, config.get("param_dtype", "float32"))
+    if config.get("param_dtype", "float32") != "float32":
+        raise ValueError("param_dtype is the mla_moe decoder's: the texocr model holds float32 "
+                         "parameters")
+    unknown = set(dec) - TEXOCR_DECODER_KEYS
+    if unknown:
+        raise ValueError(f"decoder keys not read by kind 'texocr': {sorted(unknown)}")
+    for key in ("max_length", "vocab_size"):
+        if key not in config:
+            raise ValueError(
+                f"'{key}' not present in config — it is injected at run time "
+                "from the dataset or the tokenizer."
+            )
+    return DecoderConfig(
+        vocab_size=config["vocab_size"],
+        max_length=config["max_length"],
+        embed_dim=dec["embed_dim"],
+        num_layers=dec["num_layers"],
+        heads=dec["heads"],
+        cross_attend=bool(dec.get("cross_attend", True)),
+        glu=bool(config.get("glu", True)),
+        exp_factor=dec.get("exp_factor", 4),
+        dropout=dec.get("dropout", 0.0),
+    )
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     encoder: EncoderConfig
-    decoder: DecoderConfig
+    decoder: Union[DecoderConfig, MlaMoeConfig]
     bos_token: int
     eos_token: int
     pad_token: int
@@ -172,14 +303,8 @@ class ModelConfig:
     def from_dict(config: dict) -> "ModelConfig":
         """Typed config from a reference-format dict."""
         config = with_defaults(config)
-        for key in ("max_length", "vocab_size"):
-            if key not in config:
-                raise ValueError(
-                    f"'{key}' not present in config — it is injected at run time "
-                    "from the dataset or the tokenizer."
-                )
+        decoder = decoder_config(config)
         enc_args = config["encoder"]
-        dec_args = config["decoder"]
         encoder = EncoderConfig(
             img_size=tuple(config.get("img_size", (160, 1008))),
             patch_size=config["patch_size"],
@@ -194,17 +319,6 @@ class ModelConfig:
         )
         if encoder.embed_layer not in EMBED_LAYERS:
             raise ValueError(f"unknown embed_layer: {encoder.embed_layer!r}")
-        decoder = DecoderConfig(
-            vocab_size=config["vocab_size"],
-            max_length=config["max_length"],
-            embed_dim=dec_args["embed_dim"],
-            num_layers=dec_args["num_layers"],
-            heads=dec_args["heads"],
-            cross_attend=bool(dec_args.get("cross_attend", True)),
-            glu=bool(config.get("glu", True)),
-            exp_factor=dec_args.get("exp_factor", 4),
-            dropout=dec_args.get("dropout", 0.0),
-        )
         return ModelConfig(
             encoder=encoder,
             decoder=decoder,

@@ -67,7 +67,10 @@ class DecodeState:
     ``tokens`` (B, max_len), ``done`` and ``cur`` (B,), the self-attention
     cache and, with ``return_logits``, ``logits_buf`` (B, max_len, V), all
     allocated here once. ``pick(logits)`` chooses each step's tokens.
-    ``enc_mask``: (B, Nk) bool, False at padded encoder positions."""
+    ``enc_mask``: (B, Nk) bool, False at padded encoder positions. With a
+    prefix decoder ``cross_kv`` is the prefix's filled latent cache, and the
+    decode ``start``s after it: BOS, step 0's input, at the prefix's length,
+    so the positional table leaves ``max_length - start`` steps."""
 
     def __init__(self, model: OCRModel, cross_kv, pick: Callable, *, bos_token: int,
                  eos_token: int, pad_token: int, max_len: int,
@@ -76,7 +79,9 @@ class DecodeState:
         batch, device = kv.shape[0], kv.device
         self.model, self.cross_kv, self.pick, self.enc_mask = model, cross_kv, pick, enc_mask
         self.bos_token, self.eos_token, self.pad_token = bos_token, eos_token, pad_token
-        self.max_len, self.chunk = chunk_size(max_len, model.config.decoder.max_length)
+        self.start = model.decoder_start(cross_kv)
+        self.max_len, self.chunk = chunk_size(max_len,
+                                              model.config.decoder.max_length - self.start)
         self.n_chunks = -(-self.max_len // self.chunk)
         self.cache = model.decoder_init_cache(batch, self.max_len, device)
         self.tokens = torch.empty((batch, self.max_len), dtype=torch.int64, device=device)
@@ -180,7 +185,7 @@ def mesh_generate(model: OCRModel, images: torch.Tensor, mesh, *, max_len: int,
     (sampling) must be seeded alike on every rank; the tokens then equal one
     process's. A batch the data axis does not divide raises ``ValueError``,
     as ``batch_rows`` does."""
-    check_mode(model, mode, generator)
+    check_mode(model, mode, generator, mesh=True)
     rows = batch_rows(images.shape[0], mesh)
     cross_kv = model.decoder_cross_kv(model.encode(images[rows]))
     tokens = _run(decode_state(model, cross_kv, max_len=max_len, mode=mode, generator=generator,
@@ -217,10 +222,13 @@ def sampled_decode(
                             max_len=max_len, enc_mask=enc_mask, return_logits=return_logits))
 
 
-def check_mode(model: OCRModel, mode: str, generator: Optional[torch.Generator]) -> None:
+def check_mode(model: OCRModel, mode: str, generator: Optional[torch.Generator],
+               mesh: bool = False) -> None:
     """Raises ``ValueError`` for a decode that cannot run: an unknown mode,
-    sampling without a generator, or a decoder without cross-attention."""
-    model.check_decodes()
+    sampling without a generator, or a decoder without cross-attention; and
+    ``NotImplementedError`` for a mode or a ``mesh`` decode the model's
+    decoder kind does not run (``OCRModel.check_decodes``)."""
+    model.check_decodes(mode, mesh)
     if mode not in DECODE_MODES:
         raise ValueError(f"unknown decode mode: {mode!r}")
     if mode == "sample" and generator is None:

@@ -30,7 +30,10 @@ and 1 to ``graphs.keys``. A replay
 launches the kernels without passing through their wrappers, so each graph
 keeps the counts of launches its capture made and adds them to
 ``flash_attention.launches`` and ``decode_attention.launches`` when it
-replays; a capture itself launches nothing on the device and counts nothing.
+replays, and the prefix decoder's ``moe_experts.launches`` and host
+counter ``moe.layers`` likewise; a capture itself launches nothing on the
+device and counts nothing. The device counter ``moe.expert_rows`` needs no
+such help: its adds are captured and replayed.
 
 Capture follows ``torch.cuda.graphs``' rules: every region runs once
 eagerly on a side stream first (cuDNN's and cuBLAS's first calls at a shape,
@@ -58,13 +61,15 @@ from texocr_tpu_torch import telemetry
 from texocr_tpu_torch.models.attention import decode_chunks
 from texocr_tpu_torch.models.generate import check_mode, decode_state
 from texocr_tpu_torch.models.ocr_model import OCRModel
-from texocr_tpu_torch.ops import decode_attention, flash_attention
+from texocr_tpu_torch.ops import decode_attention, flash_attention, moe_experts
 
 # CUDA allows one stream capture at a time in a process.
 _CAPTURE_LOCK = threading.Lock()
 
 #: The launch counters a replay adds to: each holds an integer ``launches``.
-_COUNTERS = (flash_attention.flash_attention, decode_attention)
+_COUNTERS = (flash_attention.flash_attention, decode_attention, moe_experts)
+#: The telemetry counters a replay adds to.
+_TELEMETRY = ("moe.layers",)
 
 
 class GraphedGenerate:
@@ -137,6 +142,7 @@ class GraphedGenerate:
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         before = [c.launches for c in _COUNTERS]
+        counted = telemetry.counters()
         with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
                               capture_error_mode="thread_local"):
             out = fn()
@@ -144,14 +150,22 @@ class GraphedGenerate:
         for counter, n in zip(_COUNTERS, before):
             launches.append(counter.launches - n)
             counter.launches = n
-        return (graph, launches), out
+        counts = {}
+        for name in _TELEMETRY:
+            n = telemetry.counters().get(name, 0) - counted.get(name, 0)
+            if n:
+                counts[name] = n
+                telemetry.count(name, -n)
+        return (graph, launches, counts), out
 
     @staticmethod
     def _replay(entry) -> None:
-        graph, launches = entry
+        graph, launches, counts = entry
         graph.replay()
         for counter, n in zip(_COUNTERS, launches):
             counter.launches += n
+        for name, n in counts.items():
+            telemetry.count(name, n)
 
     def encode(self) -> None:
         with telemetry.span("decode.encode", device=self.images):

@@ -18,6 +18,11 @@ first call of each (canvas, batch, max_len, mode, beam width or temperature)
 and replayed after (``models.graphed.make_graphed_generate``), as the JAX
 wrapper keeps one jitted program per shape. An engine on the CPU runs the
 eager ``generate``; the tokens are the same.
+
+A config whose decoder is ``mla_moe`` keeps its own vocabulary and takes a
+state dict's tensors in place (``OCRModel``), so the card holds one copy of
+the weights; ``generate_batch`` returns its token ids, and the LaTeX text of
+ids beyond the tokenizer's is not defined.
 """
 
 from __future__ import annotations
@@ -44,19 +49,18 @@ class TexOCR:
                  state_dict: Optional[Dict[str, torch.Tensor]] = None):
         config = with_defaults(dict(config))
         self.tokenizer = RegexBPETokenizer().load(config["tokenizer_path"])
+        # The texocr decoder's vocabulary; the prefix decoder keeps its own.
         config["vocab_size"] = self.tokenizer.vocab_size
         if state_dict is None and config.get("model_path"):
             state_dict = load_weights(config["model_path"])
-        if state_dict is not None:
+        if state_dict is not None and POS_EMBED_KEY in state_dict:
             # Adopt the checkpoint's positional-table length.
             config["max_length"] = int(state_dict[POS_EMBED_KEY].shape[0])
         config.setdefault("max_length", 512)
         self.config = config
         self.device = torch.device(device)
         self.model = OCRModel(ModelConfig.from_dict(config), device=self.device,
-                              seed=config.get("seed", 42))
-        if state_dict is not None:
-            self.model.load_state_dict(state_dict, strict=True)
+                              seed=config.get("seed", 42), state_dict=state_dict)
         self.model.eval()
         self.generator = torch.Generator(device=self.device).manual_seed(config.get("seed", 42))
         self._compiled: Dict[Tuple, GraphedGenerate] = {}

@@ -87,6 +87,7 @@ class MetricsLogger:
 
 _SPANS: List["Span"] = []
 _COUNTERS: Dict[str, Union[int, float]] = {}
+_DEVICE_COUNTERS: Dict[str, torch.Tensor] = {}
 _NOOP = contextlib.nullcontext()     # what ``span`` returns when no profile runs
 _profiling = torch._C._autograd._profiler_enabled   # thread-local, about 0.2 us
 
@@ -160,6 +161,27 @@ def count(name: str, value: Union[int, float] = 1) -> None:
     _COUNTERS[name] = _COUNTERS.get(name, 0) + value
 
 
+def device_counter(name: str, shape: tuple, device) -> torch.Tensor:
+    """The int64 tensor of counts ``name`` on ``device``, zeros when it is
+    first asked for (or asked for at another shape or device). Code adds to
+    it in place, on the device, with nothing read back to the host; a CUDA
+    graph that captured the add adds again at each replay, so the tensor
+    must exist before the capture (an eager warm-up asks for it first). It
+    is a normal tensor even when first asked for under ``inference_mode``,
+    so ``reset`` can zero it outside that mode."""
+    found = _DEVICE_COUNTERS.get(name)
+    if found is None or tuple(found.shape) != tuple(shape) or found.device != torch.device(device):
+        with torch.inference_mode(False):
+            found = _DEVICE_COUNTERS[name] = torch.zeros(shape, dtype=torch.int64,
+                                                         device=device)
+    return found
+
+
+def device_counters() -> Dict[str, torch.Tensor]:
+    """A host copy of each device counter (waits for the device)."""
+    return {name: t.to("cpu", copy=True) for name, t in _DEVICE_COUNTERS.items()}
+
+
 def spans() -> List[Span]:
     """Every span recorded since the last ``reset``, in the order they opened."""
     return list(_SPANS)
@@ -170,6 +192,9 @@ def counters() -> Dict[str, Union[int, float]]:
 
 
 def reset() -> None:
-    """Forgets every recorded span and every counter."""
+    """Forgets every recorded span and every counter, and zeroes each device
+    counter in place (graphs that captured its adds keep its address)."""
     _SPANS.clear()
     _COUNTERS.clear()
+    for t in _DEVICE_COUNTERS.values():
+        t.zero_()
