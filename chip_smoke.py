@@ -7,9 +7,12 @@ Phases, each fatal on failure:
   1. device: a CUDA device must be present; prints its name and power limit.
   2. build: compiles every CUDA kernel of the serving path from csrc/, and
      counts tensor-core instructions in the built library (cuobjdump -sass):
-     all six instantiations of the flash kernel must hold as many HGMMA
-     (wgmma) instructions as their loops issue: bfloat16 (head dim 64 or 128;
-     rows on 16 bytes or not) and float32 (3xTF32; head dim 64 or 128).
+     all twelve instantiations of the flash kernels must hold as many HGMMA
+     (wgmma) instructions as their loops issue (HGMMA below): the bfloat16
+     forward (head dim 64 or 128; rows on 16 bytes or not; at 64 also with
+     the row statistics the backward reads), float32 (3xTF32; head dim 64 or
+     128), and the bfloat16 backward's two launches (rows on 16 bytes or
+     not).
   3. kernels: each kernel against its plain PyTorch version on the card, at
      test shapes (masks, ragged tiles, head dims, row alignments) and at the
      serving path's shapes; then timings of the kernel, the plain version and one PyTorch
@@ -17,6 +20,21 @@ Phases, each fatal on failure:
      with L2-warm and L2-cold inputs; and at phase 16's per-rank training
      shapes (RANK_SHAPES: (64, 8, 631, 64) and (32, 4, 631, 64) in bf16),
      checked and timed beside the bound and the library call.
+ 3d. flash backward: the bf16 backward kernel (it replaces no Pallas
+     kernel) through FlashAttentionFunction against the plain bf16 VJP and
+     the float32 VJP of the same operands at BACKWARD_SHAPES (the training
+     shapes: (128, 8, 631 | 379, 64), phase 16's ranks), causal and not, and
+     at edge cases (ragged tiles, Nq != Nk, dh 48, 40 and 36, rows off 16
+     bytes). Fatal outside ops.bench.backward_gaps's limits (the kernel rounds
+     dS to bf16 where the plain version rounds dP: each gradient's largest
+     gap from float32, over its largest |value|, within twice the plain
+     version's or 2^-7, two bf16 roundings), other than one backward launch
+     a call, an output other than the forward's without statistics,
+     gradients in other strides than their operands, or row statistics more
+     than LSE_TOL off float32's.
+     Prints its time at (128, 8, 631 | 379, 64) beside its bound, the plain
+     version, the forward with and without statistics, and
+     scaled_dot_product_attention's backward.
  3b. decode attention: the decode step's attention kernel
      (csrc/decode_attention.cu; it replaces no Pallas kernel) against its
      plain version at the main path's calls (ops.bench.DECODE_CASES: the
@@ -76,7 +94,8 @@ Phases, each fatal on failure:
      with a checkpoint each, augmentation on as the training CLI has it. Fatal
      checks: finite epoch losses (a non-finite step would make its epoch's
      mean non-finite), the second epoch's below the first's, exactly 4 flash
-     launches per train step and per eval step, encoder gradients on the kernel
+     launches per train step and per eval step and 4 backward launches per
+     train step (flash_attention_backward.launches), encoder gradients on the kernel
      path against the plain path (float32 and bfloat16, 8 full canvases), the
      bf16 kernel against its plain version at the training shape (phase 3
      holds it at both training buckets too), and the losses of two steps
@@ -84,13 +103,15 @@ Phases, each fatal on failure:
      step time (median, least and most per bucket), images/s, the host
      loader's time per batch alone, peak memory, a profiled step (device time
      over that call's own wall time) and the kernel at the training shape
-     beside its bound, the library call and the math-path backward.
+     beside its bound, the library call, the backward kernel and the math
+     path's VJP.
  8b. device data: train_model with device_data and device_data_augment on
      (the dataset resident on the card as uint8, batches picked and augmented
      there, 16 steps a call), the flagship as in phase 8 on 8 full-canvas
      batches and 2 of (64, 512) (10 steps an epoch), 2 epochs, val resident.
      Fatal: finite epoch losses, the second below the first, 4 flash launches
-     per train and eval step, a resume from its checkpoint with the same step
+     per train and eval step and 4 backward launches per train step, a resume
+     from its checkpoint with the same step
      count and weights. Prints both epochs' wall time beside the host
      loader's on the same data in the same run (augmentation on the host),
      the synchronised full-canvas step, images/s, a profiled call's device-busy
@@ -212,7 +233,8 @@ Phases, each fatal on failure:
      DEMO_BATCH full canvases through the flagship from one seed without
      and with remat: the first two steps' losses within BF16_FLOOR
      (relative), 4 and 8 flash launches a step (the backward recomputes
-     each encoder sub-layer's forward); prints the synchronised step time,
+     each encoder sub-layer's forward) and 4 backward launches a step in
+     both; prints the synchronised step time,
      peak memory and a profiled step (device time, busy share) of each. (c) demo_train on the build at the flagship's
      full width with stage DEMO_STAGE's curriculum arguments cut to 2
      epochs and 2 test batches (--device_data --augment --batch_size 32
@@ -294,14 +316,20 @@ from texocr_tpu_torch.ops.bench import (  # noqa: E402
     time_ms,
 )
 
-# HGMMA per instantiation of the flash kernel, by head dim D: one per wgmma of
-# the unrolled loops. bfloat16: Q K^T in D / 16 k-steps, P V in 4 k-steps x
-# D / 64 column blocks. float32: three TF32 products each, Q K^T in D / 8
-# k-steps, P V in 8 k-steps x D / 64 column blocks.
+# HGMMA per instantiation of the flash kernels, by head dim D: one per wgmma of
+# the unrolled loops. bfloat16 forward (<D, VEC, LSE>; LSE, the row statistics
+# for the backward, only at D = 64): Q K^T in D / 16 k-steps, P V in 4 k-steps
+# x D / 64 column blocks. float32: three TF32 products each, Q K^T in D / 8
+# k-steps, P V in 8 k-steps x D / 64 column blocks. bfloat16 backward (<VEC>,
+# D = 64): 4 k-steps a product, three in the dQ launch (S, dP, dQ) and four in
+# the dK, dV launch (S^T, dP^T, dV, dK).
 HGMMA = {
-    **{f"flash_fwd_bf16<{d}, {vec}>": d // 16 + 4 * d // 64
-       for d in (64, 128) for vec in ("true", "false")},
+    **{f"flash_fwd_bf16<{d}, {vec}, {lse}>": d // 16 + 4 * d // 64
+       for d in (64, 128) for vec in ("true", "false") for lse in ("true", "false")
+       if d == 64 or lse == "false"},
     **{f"flash_fwd_f32<{d}>": 3 * (d // 8 + 8 * d // 64) for d in (64, 128)},
+    **{f"flash_bwd_dq_bf16<{vec}>": 3 * 4 for vec in ("true", "false")},
+    **{f"flash_bwd_dkdv_bf16<{vec}>": 4 * 4 for vec in ("true", "false")},
 }
 REPEATS = 3  # timed runs per request and per batch; the median is reported
 BATCH = 8  # full canvases per batch
@@ -349,6 +377,11 @@ PARALLEL_DECODE_MODES = ("greedy", "sample", "beam", "int8")
 # 128, {model: 2} at batch 32, the float32 decodes' encode of 2 canvases
 # under {model: 2} and of 1 under {data: 2}, and the dry run's 32 x 64 images
 # on 2 ranks.
+# The backward kernel's shapes, (B, H, N) at dh 64: base.train's full
+# canvases and (96, 1008) rows, phase 16's ranks; the first two are timed.
+BACKWARD_SHAPES = ((128, 8, 631), (128, 8, 379), (64, 8, 631), (32, 4, 631))
+BACKWARD_TIMED = BACKWARD_SHAPES[:2]
+LSE_TOL = 1e-4  # the kernel's base-2 row log-sum-exp against float32's (ex2.approx, sums)
 RANK_SHAPES = ((64, 8, 631, torch.bfloat16), (32, 4, 631, torch.bfloat16),
                (2, 4, 631, torch.float32), (1, 8, 631, torch.float32),
                (2, 8, 9, torch.float32))
@@ -429,11 +462,12 @@ def sass_ops(library) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             mangled = line.split("Function :", 1)[1].strip()
-            m = re.search(r"(flash_fwd_\w+?)ILi(\d+)E(?:Lb([01])E)?", mangled)
+            m = re.search(r"(flash_(?:fwd|bwd)_\w+?)I((?:L[ib]\d+E)+)E", mangled)
             name = mangled
-            if m:  # flash_fwd_bf16<D, VEC> or flash_fwd_f32<D>
-                vec = "" if m.group(3) is None else (", true" if m.group(3) == "1" else ", false")
-                name = f"{m.group(1)}<{m.group(2)}{vec}>"
+            if m:  # e.g. flash_fwd_bf16<D, VEC, LSE>, flash_fwd_f32<D>, flash_bwd_dq_bf16<VEC>
+                args = [v if t == "i" else ("true" if v == "1" else "false")
+                        for t, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
+                name = f"{m.group(1)}<{', '.join(args)}>"
             counts[name] = dict.fromkeys(("HGMMA", "HMMA", "FFMA"), 0)
         elif name is not None:
             for op in re.findall(r"\b(HGMMA|HMMA|FFMA)\b", line):
@@ -583,7 +617,7 @@ class LaunchLog:
         self.seen = {}  # signature -> [phases, first kv_lens]
         original = fa.launch
 
-        def launch(lib, q, k, v, *, scale, causal=False, kv_lens=None):
+        def launch(lib, q, k, v, *, scale, causal=False, kv_lens=None, **kw):
             key = (tuple(q.shape), k.shape[2], str(q.dtype)[6:], float(scale), bool(causal),
                    tuple(t.stride() for t in (q, k, v)),
                    tuple(t.data_ptr() % 16 // t.element_size() for t in (q, k, v)),
@@ -591,7 +625,7 @@ class LaunchLog:
             entry = self.seen.setdefault(
                 key, [set(), None if kv_lens is None else kv_lens.clone()])
             entry[0].add(self.phase)
-            return original(lib, q, k, v, scale=scale, causal=causal, kv_lens=kv_lens)
+            return original(lib, q, k, v, scale=scale, causal=causal, kv_lens=kv_lens, **kw)
 
         fa.launch = launch
 
@@ -1131,8 +1165,9 @@ def train_config(save_dir) -> dict:
 def check_train_grads(fa, rng) -> dict:
     """One loss and backward on the same GRAD_IMAGES full canvases through
     the flagship from the same weights, in float32 and in bfloat16, each
-    with flash on (FlashAttentionFunction: the kernel forward, the math-path
-    backward) and off (the math path both ways); TF32 is off and cuDNN
+    with flash on (FlashAttentionFunction: the kernel forward; the backward
+    kernel in bfloat16, the math path's VJP in float32) and off (the math
+    path both ways); TF32 is off and cuDNN
     deterministic. Fatal: a float32 encoder parameter's gradient on the
     kernel path more than GRAD_TOL (relative L2) from the plain path's; a
     bfloat16 one further from the float32 plain path's than max(2 x the
@@ -1154,11 +1189,15 @@ def check_train_grads(fa, rng) -> dict:
         for use_flash in (True, False):
             cfg = ModelConfig.from_dict(dict(FLAGSHIP, dtype=dtype, use_flash_attention=use_flash))
             model = OCRModel(cfg, device="cuda", seed=0)
-            fa.flash_attention.launches = 0
+            fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
             logits, shifted = model(images, labels)
             sequence_ce_loss(logits, shifted, pad_token=999).backward()
-            if fa.flash_attention.launches != (4 if use_flash else 0):
-                raise AssertionError(f"flash={use_flash}: {fa.flash_attention.launches} launches")
+            # The backward kernel takes the bfloat16 calls; float32 keeps the math path's VJP.
+            backward = N_LAYERS if use_flash and dtype == "bfloat16" else 0
+            if (fa.flash_attention.launches != (N_LAYERS if use_flash else 0)
+                    or fa.flash_attention_backward.launches != backward):
+                raise AssertionError(f"{dtype} flash={use_flash}: {fa.flash_attention.launches} "
+                                     f"launches, {fa.flash_attention_backward.launches} backward")
             grads[dtype, use_flash] = {k: p.grad.double()
                                        for k, p in model.encoder.named_parameters()}
             del model, logits
@@ -1195,10 +1234,9 @@ def check_train_grads(fa, rng) -> dict:
 
 def time_train_attention(fa, gen) -> dict:
     """The bf16 kernel at TRAIN_SHAPE (split-head, L2-warm, CUDA-graph
-    replays) beside its bound, the plain version, scaled_dot_product_attention
-    and the math-path backward that FlashAttentionFunction runs there."""
-    from texocr_tpu_torch.ops.attention_core import math_attention
-
+    replays) beside its bound, the plain version, scaled_dot_product_attention,
+    and the backward kernel that FlashAttentionFunction runs there beside the
+    math path's VJP that it ran before."""
     b, h, n, dh = TRAIN_SHAPE
     q, k, v = (split_heads(gen, b, h, n, dh, torch.bfloat16) for _ in range(3))
     scale = dh ** -0.5
@@ -1214,14 +1252,13 @@ def time_train_attention(fa, gen) -> dict:
            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, scale=scale), iters=5),
            "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                q, k, v, scale=scale))}
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     grad_out = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
-
-    def backward():
-        out = math_attention(qg, kg, vg, scale=scale)
-        torch.autograd.grad(out, (qg, kg, vg), grad_out)
-
-    row["math_backward_ms"] = event_ms(backward)
+    lse = torch.empty(b, h, fa.lse_rows(n), device="cuda")
+    out = fa.flash_attention(q, k, v, scale=scale, lse=lse)
+    row["backward_ms"] = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, grad_out,
+                                                                     scale=scale))
+    row["math_backward_ms"] = event_ms(lambda: fa.flash_attention_backward_plain(
+        q, k, v, grad_out, scale=scale))
     log(f"[train] flash_attention bf16 {TRAIN_SHAPE} split-head: " + json.dumps(row))
     return row
 
@@ -1535,6 +1572,122 @@ def decoded_steps(tokens, eos, chunk) -> int:
     return min(steps, (int(first.max()) // chunk + 1) * chunk)
 
 
+def backward_operands(gen, b, h, nq, nk, dh, layout):
+    """q, k, v (``flash_inputs``) and an output gradient in bf16 on the card;
+    in the split-head layout the gradient is split from (B, Nq, H * dh) too,
+    as autograd hands it back through the encoder's head merge."""
+    q, k, v = flash_inputs(gen, b, h, nq, nk, dh, torch.bfloat16, layout)
+    if layout == "split":
+        grad = split_heads(gen, b, h, nq, dh, torch.bfloat16)
+    else:
+        grad = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    return q, k, v, grad
+
+
+def hold_backward(fa, q, k, v, grad, causal) -> dict:
+    """One call through FlashAttentionFunction (the forward with row
+    statistics, then the backward kernel) against the plain bf16 VJP and the
+    float32 VJP of the same bf16 operands, under ``backward_gaps``'s limits
+    (the kernel rounds dS to bf16 where the plain version rounds dP). Also
+    fatal: a backward launch other than one, an output other than the
+    forward's without statistics, a gradient with other strides than its
+    operand, row statistics off the float32 log-sum-exp by more than
+    LSE_TOL."""
+    from texocr_tpu_torch.ops.bench import backward_gaps
+
+    scale = q.shape[-1] ** -0.5
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    before = fa.flash_attention_backward.launches
+    out = fa.FlashAttentionFunction.apply(qg, kg, vg, scale, causal)
+    got = torch.autograd.grad(out, (qg, kg, vg), grad)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_backward.launches - before
+    plain = fa.flash_attention_backward_plain(q, k, v, grad, scale=scale, causal=causal)
+    ref = fa.flash_attention_backward_plain(q.float(), k.float(), v.float(), grad.float(),
+                                            scale=scale, causal=causal)
+    gaps = backward_gaps(got, plain, ref)
+    forward_gap = (out.float() - fa.flash_attention(q, k, v, scale=scale, causal=causal)
+                   .float()).abs().max().item()
+    lse = torch.empty(q.shape[0], q.shape[1], fa.lse_rows(q.shape[2]), device="cuda")
+    fa.flash_attention(q, k, v, scale=scale, causal=causal, lse=lse)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        logits = logits.masked_fill(torch.ones_like(logits, dtype=torch.bool).triu(1),
+                                    -float("inf"))
+    lse_gap = (lse[..., :q.shape[2]] - torch.logsumexp(logits, -1) / np.log(2)).abs().max().item()
+    strides = all(g.stride() == t.stride() for g, t in zip(got, (q, k, v)))
+    gaps.update(launches=launches, forward_gap=forward_gap, lse_gap=lse_gap, strides=strides)
+    gaps["ok"] = (gaps["ok"] and launches == 1 and forward_gap == 0 and lse_gap <= LSE_TOL
+                  and strides)
+    return gaps
+
+
+def flash_backward_phase(fa, gen) -> dict:
+    """Phase 3d: the bf16 backward kernel against its plain version
+    (``hold_backward``) at the training shapes of BACKWARD_SHAPES, causal and
+    not, and at edge cases (ragged tiles, Nq != Nk, dh 48 and 36, rows off 16
+    bytes); then its time at BACKWARD_TIMED beside its bound, the plain
+    version (the math path's VJP, which the backward ran before), the
+    forward with and without row statistics, and
+    scaled_dot_product_attention's backward (a yardstick the port never
+    calls)."""
+    from texocr_tpu_torch.ops.bench import attention_backward_bound_ms
+
+    cases = [(b, h, n, n, 64, causal, "split") for b, h, n in BACKWARD_SHAPES
+             for causal in (False, True)]
+    cases += [
+        (2, 3, 200, 200, 64, True, "dense"),
+        (2, 2, 70, 90, 64, False, "dense"),
+        (3, 2, 17, 17, 64, True, "split"),
+        (2, 3, 130, 130, 48, False, "split"),
+        (2, 2, 70, 90, 36, False, "dense"),
+        (2, 2, 129, 129, 40, True, "slice"),
+        (2, 3, 130, 130, 64, True, "offset"),
+    ]
+    worst = {}
+    for b, h, nq, nk, dh, causal, layout in cases:
+        q, k, v, grad = backward_operands(gen, b, h, nq, nk, dh, layout)
+        gaps = hold_backward(fa, q, k, v, grad, causal)
+        log(f"[backward] {(b, h, nq, nk, dh)} causal={causal} {layout}: "
+            + json.dumps(gaps) + (" ok" if gaps["ok"] else " FAIL"))
+        if not gaps["ok"]:
+            raise AssertionError("the flash backward kernel disagrees with its plain version")
+        for name in ("dq", "dk", "dv"):
+            worst[name] = max(worst.get(name, 0.0), gaps[name]["kernel"])
+        del q, k, v, grad
+        torch.cuda.empty_cache()
+
+    rows = []
+    for b, h, n in BACKWARD_TIMED:
+        q, k, v, grad = backward_operands(gen, b, h, n, n, 64, "split")
+        scale = 64 ** -0.5
+        lse = torch.empty(b, h, fa.lse_rows(n), device="cuda")
+        out = fa.flash_attention(q, k, v, scale=scale, lse=lse)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+
+        def library():
+            torch.autograd.grad(lib_out, (ql, kl, vl), grad, retain_graph=True)
+
+        bound, bound_by = attention_backward_bound_ms(q, k)
+        row = {"shape": [b, h, n, 64], "bound_ms": bound, "bound_by": bound_by,
+               "ms": time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, grad,
+                                                                  scale=scale)),
+               "plain_ms": event_ms(lambda: fa.flash_attention_backward_plain(
+                   q, k, v, grad, scale=scale), iters=3),
+               "library_ms": event_ms(library),
+               "library_kernels": device_kernel_names(library),
+               "forward_ms": time_ms(lambda: fa.flash_attention(q, k, v, scale=scale)),
+               "forward_lse_ms": time_ms(lambda: fa.flash_attention(q, k, v, scale=scale,
+                                                                    lse=lse))}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        log(f"[backward] timing {(b, h, n, 64)} split-head: " + json.dumps(row))
+        rows.append(row)
+        del q, k, v, grad, out, lib_out, ql, kl, vl
+        torch.cuda.empty_cache()
+    return {"worst": worst, "timings": rows}
+
+
 def train(fa, rng, data_dir=None) -> dict:
     """Phase 8: the training path on the card (see the module docstring).
     ``data_dir``: where to write the dataset and leave it (phase 16 trains
@@ -1562,20 +1715,21 @@ def train(fa, rng, data_dir=None) -> dict:
         config = train_config(os.path.join(data_dir, "checkpoints"))
         metrics = os.path.join(tmp, "metrics.jsonl")
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention.launches = 0
+        fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
         t0 = time.perf_counter()
         model, state, history = train_model(train_set, val_set, config, metrics_path=metrics,
                                             device="cuda")
         run_s = time.perf_counter() - t0
         launches = fa.flash_attention.launches
+        backward_launches = fa.flash_attention_backward.launches
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         with open(metrics) as f:
             records = [json.loads(line) for line in f]
         train_steps = sum(r["steps"] for r in records if r["event"] == "train_epoch")
         eval_steps = TRAIN_EPOCHS * len(create_dataloader(val_set, config))
         log(f"[train] train_model: {TRAIN_EPOCHS} epochs, {train_steps} train and {eval_steps} "
-            f"eval steps in {run_s:.1f} s; epoch losses {history}; flash launches {launches}; "
-            f"peak memory {peak_gb:.2f} GB")
+            f"eval steps in {run_s:.1f} s; epoch losses {history}; flash launches {launches}, "
+            f"backward {backward_launches}; peak memory {peak_gb:.2f} GB")
         if not (len(history) == TRAIN_EPOCHS and np.isfinite(history).all()):
             raise AssertionError(f"non-finite training loss: {history}")
         if not history[1] < history[0]:
@@ -1583,6 +1737,9 @@ def train(fa, rng, data_dir=None) -> dict:
         if launches != 4 * (train_steps + eval_steps):
             raise AssertionError(f"expected 4 flash launches per step, got {launches} for "
                                  f"{train_steps} train and {eval_steps} eval steps")
+        if backward_launches != 4 * train_steps:
+            raise AssertionError(f"expected 4 flash backward launches per train step, got "
+                                 f"{backward_launches} for {train_steps} train steps")
 
         # Resume: two steps from the checkpoint against two more on the state.
         train_step = make_train_step(mask_pad=True)
@@ -1617,12 +1774,14 @@ def train(fa, rng, data_dir=None) -> dict:
             for host_images, host_labels in prefetch(iter(loader)):
                 images, labels = put_batch(host_images, host_labels, "cuda")
                 torch.cuda.synchronize()
-                fa.flash_attention.launches = 0
+                fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
                 timed = {}
                 with step_timer(timed, sync=images):
                     loss = train_step(state, images, labels)["loss"]
-                if fa.flash_attention.launches != 4 or not torch.isfinite(loss):
+                if (fa.flash_attention.launches != 4 or fa.flash_attention_backward.launches != 4
+                        or not torch.isfinite(loss)):
                     raise AssertionError(f"train step: {fa.flash_attention.launches} launches, "
+                                         f"{fa.flash_attention_backward.launches} backward, "
                                          f"loss {loss.item()}")
                 by_bucket.setdefault(tuple(images.shape[1:3]), []).append(timed["seconds"])
         full = tuple(TRAIN_BUCKETS[0][0])
@@ -1631,10 +1790,11 @@ def train(fa, rng, data_dir=None) -> dict:
         eval_step = make_eval_step(mask_pad=True)
         host_images, host_labels = next(iter(create_dataloader(val_set, config)))
         val_images, val_labels = put_batch(host_images, host_labels, "cuda")
-        fa.flash_attention.launches = 0
+        fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
         eval_step(state.model, val_images, val_labels).item()
-        if fa.flash_attention.launches != 4:
-            raise AssertionError(f"eval step: {fa.flash_attention.launches} flash launches")
+        if fa.flash_attention.launches != 4 or fa.flash_attention_backward.launches != 0:
+            raise AssertionError(f"eval step: {fa.flash_attention.launches} flash launches, "
+                                 f"{fa.flash_attention_backward.launches} backward")
 
         # One profiled full-canvas step.
         full_batch = next(b for b in create_dataloader(train_set, config)
@@ -1642,17 +1802,19 @@ def train(fa, rng, data_dir=None) -> dict:
         images, labels = put_batch(*full_batch, "cuda")
         prof = device_kernels(lambda: train_step(state, images, labels),
                               span="FlashAttentionFunctionBackward")
-        backward_s = max(prof["span_device_s"].values(), default=0.0)
+        backward_s = max(prof["span_device_s"].values(), default=0.0)  # the four layers' sum
         median_full = float(np.median(by_bucket[full]))
         result = {
             "train_model_s": run_s, "epoch_losses": history, "epochs": records,
             "launches": launches, "launches_per_step": launches / (train_steps + eval_steps),
+            "backward_launches": backward_launches,
+            "backward_launches_per_train_step": backward_launches / train_steps,
             "peak_memory_gb": peak_gb, "grad_rel_l2": grad_errors,
             "step_s": step_s, "images_per_s_full": TRAIN_BATCH / median_full,
             "loader_s_per_batch": loader_s,
             "profile": {**prof,
                         "device_busy_share": prof["device_s"] / prof["profiled_wall_s"],
-                        "math_backward_share": backward_s / prof["device_s"]},
+                        "attention_backward_share": backward_s / prof["device_s"]},
             "resume_losses": [resumed, kept], "data_dir": data_dir, "config": config,
         }
     log(f"[train] step (synchronised, over {TIMED_EPOCHS} epochs) {step_s} s, "
@@ -1660,7 +1822,7 @@ def train(fa, rng, data_dir=None) -> dict:
         f"{loader_s:.3f} s per batch; peak memory {peak_gb:.2f} GB; profiled full step "
         f"{prof['device_s'] * 1e3:.1f} ms on the device in {prof['profiled_wall_s'] * 1e3:.1f} "
         f"ms wall, {100 * result['profile']['device_busy_share']:.1f}% busy, attention's "
-        f"math-path backward {100 * result['profile']['math_backward_share']:.1f}%")
+        f"backward {100 * result['profile']['attention_backward_share']:.1f}%")
     log("[train] " + json.dumps({k: v for k, v in result.items()
                                  if k not in ("data_dir", "config")}))
     return result
@@ -1707,12 +1869,13 @@ def device_data_phase(fa, rng) -> dict:
                       device_data_augment=True, device_data_steps_per_call=DD_STEPS_PER_CALL)
         metrics = os.path.join(tmp, "resident.jsonl")
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention.launches = 0
+        fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
         t0 = time.perf_counter()
         _, state, history = train_model(train_set, val_set, config, metrics_path=metrics,
                                         device="cuda")
         run_s = time.perf_counter() - t0
         launches = fa.flash_attention.launches
+        backward_launches = fa.flash_attention_backward.launches
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         with open(metrics) as f:
             records = [json.loads(line) for line in f]
@@ -1722,7 +1885,8 @@ def device_data_phase(fa, rng) -> dict:
         log(f"[device data] train_model, device_data on, augmentation on the device: "
             f"{TRAIN_EPOCHS} epochs, {train_steps} train and {eval_steps // TRAIN_EPOCHS} eval "
             f"steps in {run_s:.1f} s; epoch s {[r['seconds'] for r in epochs]}; epoch losses "
-            f"{history}; flash launches {launches}; peak memory {peak_gb:.2f} GB")
+            f"{history}; flash launches {launches}, backward {backward_launches}; peak memory "
+            f"{peak_gb:.2f} GB")
         if not (len(history) == TRAIN_EPOCHS and np.isfinite(history).all()):
             raise AssertionError(f"non-finite device-resident training loss: {history}")
         if not history[1] < history[0]:
@@ -1732,6 +1896,9 @@ def device_data_phase(fa, rng) -> dict:
         if launches != N_LAYERS * (train_steps + eval_steps):
             raise AssertionError(f"expected {N_LAYERS} flash launches per step, got {launches} for "
                                  f"{train_steps} train and {eval_steps} eval steps")
+        if backward_launches != N_LAYERS * train_steps:
+            raise AssertionError(f"expected {N_LAYERS} flash backward launches per train step, "
+                                 f"got {backward_launches} for {train_steps} train steps")
 
         # A checkpoint of this path resumes with its step count and weights.
         _, resumed, _ = train_model(train_set, val_set, dict(config, resume=True),
@@ -1776,6 +1943,7 @@ def device_data_phase(fa, rng) -> dict:
         result.update(
             train_model_s=run_s, epoch_losses=history, epochs=epochs, host_epochs=host_epochs,
             launches=launches, launches_per_step=launches / (train_steps + eval_steps),
+            backward_launches_per_train_step=backward_launches / train_steps,
             peak_memory_gb=peak_gb, step_s={"median": median, "min": min(step_s),
                                             "max": max(step_s), "steps": len(step_s)},
             images_per_s_full=TRAIN_BATCH / median,
@@ -3127,18 +3295,20 @@ def remat_steps(fa, config, train_set) -> dict:
             config["seed"])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        losses, launches, times = [], [], []
+        losses, launches, backward, times = [], [], [], []
         for i in range(2 + REMAT_TIMED):
-            fa.flash_attention.launches = 0
+            fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
             timed = {}
             with step_timer(timed, sync=images):
                 loss = train_step(state, images, labels)["loss"]
             launches.append(fa.flash_attention.launches)
+            backward.append(fa.flash_attention_backward.launches)
             (losses if i < 2 else times).append(loss.item() if i < 2 else timed["seconds"])
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         prof = device_kernels(lambda: train_step(state, images, labels))
         out["remat" if remat else "plain"] = {
-            "losses": losses, "launches_per_step": launches, "step_s": float(np.median(times)),
+            "losses": losses, "launches_per_step": launches,
+            "backward_launches_per_step": backward, "step_s": float(np.median(times)),
             "peak_memory_gb": peak_gb,
             "profile": {**prof, "device_busy_share": prof["device_s"] / prof["profiled_wall_s"]}}
         log(f"[tools] profiled step {'with' if remat else 'without'} remat: "
@@ -3275,12 +3445,15 @@ def tools_phase(fa, rng, gen) -> dict:
         rel = max(abs(a - b) / abs(b) for a, b in zip(steps["remat"]["losses"],
                                                       steps["plain"]["losses"]))
         per_step = {k: sorted(set(r["launches_per_step"])) for k, r in steps.items()}
-        ok = rel <= BF16_FLOOR and per_step == {"plain": [N_LAYERS], "remat": [2 * N_LAYERS]}
+        backward = {k: sorted(set(r["backward_launches_per_step"])) for k, r in steps.items()}
+        ok = (rel <= BF16_FLOOR and per_step == {"plain": [N_LAYERS], "remat": [2 * N_LAYERS]}
+              and backward == {"plain": [N_LAYERS], "remat": [N_LAYERS]})
         log(f"[tools] fixed batch of {DEMO_BATCH} full canvases, the flagship from one seed: "
             f"losses of two steps without remat {steps['plain']['losses']}, with remat "
             f"{steps['remat']['losses']}, max relative difference {rel:.3e} (tol "
             f"{BF16_FLOOR:g}); flash launches per step {per_step} (expected {N_LAYERS} and "
-            f"{2 * N_LAYERS}: remat recomputes each encoder sub-layer's forward); step s "
+            f"{2 * N_LAYERS}: remat recomputes each encoder sub-layer's forward), backward "
+            f"launches {backward} (expected {N_LAYERS} in both); step s "
             f"{steps['plain']['step_s']:.4f} without, {steps['remat']['step_s']:.4f} with "
             f"remat; peak memory {steps['plain']['peak_memory_gb']:.2f} GB without, "
             f"{steps['remat']['peak_memory_gb']:.2f} GB with; {card} {'ok' if ok else 'FAIL'}")
@@ -3536,15 +3709,12 @@ def orbax_phase(fa, trained, device="cuda") -> dict:
                       for k, v in served.items()}}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
+def build_phase(fa) -> None:
+    """Phase 2: builds the flash source and prints ptxas's registers, spills
+    and warnings per kernel, each kernel's tensor-core instructions, and
+    the occupancy calculator's blocks per SM; fatal unless every
+    instantiation of HGMMA holds its count."""
     from texocr_tpu_torch.ops import build
-    from texocr_tpu_torch.ops import flash_attention as fa
-
-    card = card_line()
-    log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     library, build_log = build.build(fa.SOURCE)
@@ -3566,6 +3736,18 @@ def main() -> int:
         f"{dtype} dh {dh}: {lib.texocr_flash_attention_blocks_per_sm(code, dh)}"
         for dtype, code in (("float32", 0), ("bfloat16", 1)) for dh in (64, 128)))
 
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from texocr_tpu_torch.ops import flash_attention as fa
+
+    card = card_line()
+    log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    build_phase(fa)
     phase_s = {"build": time.perf_counter() - t0}
     launch_log = LaunchLog(fa)
 
@@ -3580,6 +3762,7 @@ def main() -> int:
     errors = phase("kernels", check_flash_kernel, fa, gen)
     timings = phase("kernel timing", time_flash, fa, gen)
     rank_rows = phase("rank shape timing", time_rank_shapes, fa, gen)
+    backward = phase("flash backward", flash_backward_phase, fa, gen)
     decoded = phase("decode attention", decode_attention_phase)
     routed = phase("moe experts", moe_experts_phase)
     f32_launches = phase("golden", check_golden, fa)
@@ -3659,6 +3842,21 @@ def main() -> int:
            for k, v in interchange["resume"].items()},
         **{f"serve from the {k}": {"launches": v["launches"], "encodes": 1}
            for k, v in interchange["serve"].items()}})
+    kernels.append(dict(
+        name="flash_attention_backward_bf16",
+        route="cuda",
+        source="texocr_tpu_torch/csrc/flash_attention.cu",
+        replaces=None,  # the JAX package takes XLA's VJP of the math path
+        instruction="wgmma (HGMMA)",
+        launches={"train a train step": trained["backward_launches_per_train_step"],
+                  "device data a train step":
+                      resident["backward_launches_per_train_step"],
+                  "tools a step without and with remat":
+                      {k: tools["steps"][k]["backward_launches_per_step"]
+                       for k in ("plain", "remat")}},
+        worst_gap=backward["worst"],
+        shapes=backward["timings"],
+    ))
     kernels.append(dict(
         name="decode_attention",
         route="cuda",

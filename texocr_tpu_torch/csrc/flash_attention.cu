@@ -1,4 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash attention for Hopper (sm_90a), plain C interface for ctypes: the
+// forward in bfloat16 and float32, and the bfloat16 backward (its own note
+// below, at `flash_bwd_dq_bf16`, replaces no Pallas kernel).
 //
 // Replaces the Pallas TPU kernel `_fa_kernel` (texocr_tpu/ops/flash_attention.py),
 // which keeps the whole K/V of one (batch, head) resident in many-MB VMEM and
@@ -98,6 +100,11 @@
 // by element and stores it to the same swizzled place; those loads do not
 // overlap the math. The launch picks one; both give the same bits.
 //
+// The bfloat16 forward has a third template switch, LSE: the instantiation that
+// also writes each row's base-2 log-sum-exp for the backward. Only a call that
+// will be differentiated launches it (dh <= 64); every other call launches the
+// instantiation without it.
+//
 // The launch allocates nothing, does not synchronise, runs on the given stream,
 // and returns cudaGetLastError().
 
@@ -127,6 +134,7 @@ struct Args {
   float scale;
   int causal;
   cudaStream_t stream;
+  float* lse;  // (B, H, lse_rows(Nq)) float32, or null: the forward's row statistics
 };
 
 // Lets `kernel` use `bytes` of dynamic shared memory. `done` (one bit per
@@ -291,16 +299,54 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Stores a 64 x 64 float32 accumulator fragment, each of this thread's two rows
+// (row_lo, row_lo + 8) times its factor in `mul`, as bf16 into the (rows, dh)
+// matrix at `base` (row stride `stride`); rows >= rows_total and columns >= dh
+// are not written. Column pairs store as one 4-byte word where rows start on 4
+// bytes and dh is even (col is even, so col < dh then covers col + 1). One
+// test per block: a test per pair made the 17-query call 11% slower on an H100.
+__device__ __forceinline__ void store_tile_bf16(const float (&acc)[32], __nv_bfloat16* base,
+                                                long long stride, int row_lo, int rows_total,
+                                                int dh, const float (&mul)[2]) {
+  const int col_q = 2 * (threadIdx.x % 4);
+  const bool pairs =
+      reinterpret_cast<uintptr_t>(base) % 4 == 0 && stride % 2 == 0 && dh % 2 == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    if (row >= rows_total) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + col_q;
+      const float lo = acc[4 * j + 2 * r] * mul[r];
+      const float hi = acc[4 * j + 2 * r + 1] * mul[r];
+      __nv_bfloat16* dst = base + row * stride + col;
+      if (pairs) {
+        if (col < dh) *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(lo, hi);
+      } else {
+        if (col < dh) dst[0] = __float2bfloat16_rn(lo);
+        if (col + 1 < dh) dst[1] = __float2bfloat16_rn(hi);
+      }
+    }
+  }
+}
+
 // Accumulator layout of wgmma m64nNk16 (f32): thread t of the warpgroup holds,
 // for register i, row 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2) and
 // column 8 * (i / 4) + 2 * (t % 4) + i % 2. So each thread holds two rows, and
 // each row's columns are spread over the 4 threads of a quad.
-template <int D, bool VEC>
+//
+// LSE: also writes each row's log-sum-exp in base 2, m + log2(l) of the
+// scaled logits, to lse[(b, h, row)] for every row of the block's 64 (rows
+// past Nq included: their zero queries give finite values), in a
+// (B, H, gridDim.x * 64) float32 buffer. The backward's P is exp2 of the
+// scaled logit less it.
+template <int D, bool VEC, bool LSE>
 __global__ void __launch_bounds__(WG_THREADS)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                const int* __restrict__ kv_lens, int nq, int nk, int dh, Strides qs, Strides ks,
-               Strides vs, Strides os, float scale_log2, int causal) {
+               Strides vs, Strides os, float scale_log2, int causal, float* __restrict__ lse) {
   constexpr int SUB = D / 64;  // 64-column sub-tiles per row
   constexpr int TILE = SUB * SUB_BYTES;  // one 64 x D tile
   constexpr int KSTEPS = D / 16;  // k16 steps of Q K^T
@@ -445,49 +491,37 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     __syncthreads();  // this stage is free for tile t + 2's copies
   }
 
-  __nv_bfloat16* ob = o + b * os.b + h * os.h;
-  // Column pairs store as one 4-byte word where o's rows start on 4 bytes and
-  // dh is even (col is even, so col < dh then covers col + 1). One test per
-  // block: a test per pair made the 17-query call 11% slower on an H100.
-  const bool pairs = reinterpret_cast<uintptr_t>(ob) % 4 == 0 && os.n % 2 == 0 && dh % 2 == 0;
+  float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float inv = 1.f / l;
-    const int row = row_lo + 8 * r;
-    if (row >= nq) continue;
-#pragma unroll
-    for (int n = 0; n < SUB; ++n)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = 64 * n + 8 * j + col_q;
-        const float lo = acc[n][4 * j + 2 * r] * inv;
-        const float hi = acc[n][4 * j + 2 * r + 1] * inv;
-        __nv_bfloat16* dst = ob + row * os.n + col;
-        if (pairs) {
-          if (col < dh) *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(lo, hi);
-        } else {
-          if (col < dh) dst[0] = __float2bfloat16_rn(lo);
-          if (col + 1 < dh) dst[1] = __float2bfloat16_rn(hi);
-        }
-      }
+    inv[r] = 1.f / l;
+    if constexpr (LSE) {
+      if (lane % 4 == 0)
+        lse[((long long)b * gridDim.y + h) * gridDim.x * BLOCK_Q + row_lo + 8 * r] =
+            m_run[r] + log2f(l);
+    }
   }
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int n = 0; n < SUB; ++n)
+    store_tile_bf16(acc[n], ob + 64 * n, os.n, row_lo, nq, dh - 64 * n, inv);
 }
 
-template <int D, bool VEC>
+template <int D, bool VEC, bool LSE>
 cudaError_t launch_bf16(const Args& a) {
   constexpr int smem = 5 * 64 * D * 2 + 1024;  // Q, 2 x (K, V), alignment slack
   static std::atomic<unsigned long long> smem_set{0};
-  cudaError_t err =
-      allow_dynamic_smem(smem_set, reinterpret_cast<const void*>(flash_fwd_bf16<D, VEC>), smem);
+  cudaError_t err = allow_dynamic_smem(
+      smem_set, reinterpret_cast<const void*>(flash_fwd_bf16<D, VEC, LSE>), smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.nq + BLOCK_Q - 1) / BLOCK_Q, a.heads, a.batch);
-  flash_fwd_bf16<D, VEC><<<grid, WG_THREADS, smem, a.stream>>>(
+  flash_fwd_bf16<D, VEC, LSE><<<grid, WG_THREADS, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.kv_lens, a.nq,
-      a.nk, a.dh, a.qs, a.ks, a.vs, a.os, a.scale * 1.4426950408889634f, a.causal);
+      a.nk, a.dh, a.qs, a.ks, a.vs, a.os, a.scale * 1.4426950408889634f, a.causal, a.lse);
   return cudaGetLastError();
 }
 
@@ -495,6 +529,394 @@ cudaError_t launch_bf16(const Args& a) {
 bool rows_aligned16(const void* p, const Strides& st, int per16 = 8) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % per16 == 0 && st.h % per16 == 0 &&
          st.n % per16 == 0;
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 backward: two wgmma kernels, dQ and then dK with dV
+// ---------------------------------------------------------------------------
+//
+// Replaces no Pallas kernel: the JAX package differentiates its flash forward
+// through XLA's VJP of the math path (`_fad_bwd`), and the port did the same
+// until this kernel, materialising the (B, H, Nq, Nk) float32 scores and their
+// gradients off the tensor cores. What bounds it: five products of
+// 2 Nq Nk dh per (batch, head) (S = Q K^T for P, dP = dO V^T, dV = P^T dO,
+// dQ = dS K, dK = dS^T Q) on (4 Nq + 4 Nk) dh elements moved, so at the
+// encoder's N = 631, dh = 64 it is bound by operations, 10 Nq Nk dh at
+// 989 TFLOP/s: 0.264 ms at (128, 8, 631, 64) on an H100 SXM.
+//
+// The design answers it as the forward does: every product on the tensor cores
+// (`wgmma` m64n64k16, bf16 in, float32 accumulate), 64-row tiles in 128-byte
+// swizzled shared memory filled by 16-byte `cp.async` copies through a
+// double-buffered ring, and no score tile ever in device memory or shared
+// memory. P is recomputed from the forward's saved base-2 row log-sum-exp (the
+// LSE instantiation of `flash_fwd_bf16`) as exp2(S scale log2 e - LSE), one
+// `ex2.approx` each. Two launches and no atomics, so the gradients are
+// bit-reproducible and need no float32 scratch:
+//
+// A, `flash_bwd_dq_bf16`, one warpgroup per (64-query tile, head, batch): Q and
+// dO stay in shared memory; the block first writes D = rowsum(dO o O) in
+// float32 (for launch B too), then walks K and V in 64-key tiles:
+// S = Q K^T and dP = dO V^T from shared memory, P, dS = P o (dP - D) in
+// registers, and dQ += dS K with dS rounded to bf16 and fed from registers as
+// the A operand (the accumulator fragment is the register A fragment, as the
+// forward feeds P) and K read MN-major with the transpose bit, as the forward
+// reads V.
+//
+// B, `flash_bwd_dkdv_bf16`, one warpgroup per (64-key tile, head, batch): K and
+// V stay in shared memory; it walks Q, dO, LSE and D in 64-query tiles and forms
+// the transposed products S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T
+// come out in the accumulator layout, which is the register A fragment of
+// dV += P^T dO and dK += dS^T Q (dO and Q read MN-major).
+//
+// So S and dP are formed twice (7 products in place of 5). Precision: sums,
+// LSE and D in float32; P rounded to bf16 for dV as the math path rounds its
+// probabilities; dS rounded to bf16 as the A operand of dQ and dK, the one
+// rounding the math path does not make (its dP is rounded to bf16 instead).
+// Outputs in bf16 with their own strides. dh <= 64 (zero-filled as the
+// forward does), causal only with Nq == Nk (top-left aligned). The LSE and D
+// buffers are (B, H, Npad) float32 with Npad = Nq rounded up to 64, so every
+// query tile reads them whole with 16-byte copies; rows past Nq hold finite
+// values (zero queries) and meet zero dO rows, so they add nothing.
+
+// Two bf16 from one 32-bit word, as float32.
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// d (64 x 64) = A B^T over D = 64 (4 k16 steps), both 64 x 64 bf16 tiles in
+// shared memory, K-major (the forward's S = Q K^T).
+__device__ __forceinline__ void wgmma_abt(float (&d)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss(d, smem_desc(a + kk * 32, 16, 1024), smem_desc(b + kk * 32, 16, 1024), kk > 0);
+}
+
+// d (64 x 64) += A B: A (64 x 64) in registers as four k16 fragments, B a
+// 64 x 64 bf16 tile in shared memory read MN-major (the forward's O += P V).
+__device__ __forceinline__ void wgmma_ab(float (&d)[32], const uint32_t (&a)[4][4], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_bt(d, a[kk], smem_desc(b + kk * 16 * 128, SUB_BYTES, 1024));
+}
+
+// A 64 x 64 fragment rounded to bf16 as four register A fragments: keys (or
+// queries) 16 kk .. 16 kk + 15 are registers 8 kk .. 8 kk + 7, in order.
+__device__ __forceinline__ void pack_a(const float (&x)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* delta;
+  void *dq, *dk, *dv;
+  int batch, heads, nq, nk, dh, npad;
+  Strides qs, ks, vs, os, dos, dqs, dks, dvs;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+constexpr int BWD_TILE = SUB_BYTES;  // one 64 x 64 bf16 tile
+constexpr int BWD_SMEM = 6 * BWD_TILE + 2 * 2 * 64 * 4 + 1024;  // 6 tiles, row floats, slack
+
+template <bool VEC>
+__global__ void __launch_bounds__(WG_THREADS)
+flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+                  const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                  float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int nq, int nk, int dh,
+                  int npad, Strides qs, Strides ks, Strides vs, Strides os, Strides dos,
+                  Strides dqs, float scale, float scale_log2, int causal) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const base_ptr = smem_raw + (base - smem_addr(smem_raw));
+  // Q, dO, then stage s of the ring: K at base + TILE * (2 + 2 s), V right
+  // after it. O lands in stage 1's K slot for D, before the ring needs it.
+  const uint32_t q_s = base, do_s = base + BWD_TILE, o_s = base + 4 * BWD_TILE;
+  float* const d_rows = reinterpret_cast<float*>(base_ptr + 6 * BWD_TILE);
+
+  const int q0 = blockIdx.x * BLOCK_Q;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row_lo = q0 + 16 * warp + lane / 4;  // rows row_lo and row_lo + 8
+  const int col_q = 2 * (lane % 4);
+  const long long stat = ((long long)b * gridDim.y + h) * npad;  // this head's LSE and D rows
+
+  const int k_end = causal ? min(nk, q0 + BLOCK_Q) : nk;
+  const int n_tiles = (k_end + BLOCK_K - 1) / BLOCK_K;
+
+  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
+  load_tile_bf16<64, VEC>(q_s, q + b * qs.b + h * qs.h, qs.n, q0, nq, dh);
+  load_tile_bf16<64, VEC>(do_s, dout + b * dos.b + h * dos.h, dos.n, q0, nq, dh);
+  load_tile_bf16<64, VEC>(o_s, o + b * os.b + h * os.h, os.n, q0, nq, dh);
+  load_tile_bf16<64, VEC>(base + 2 * BWD_TILE, kb, ks.n, 0, nk, dh);
+  load_tile_bf16<64, VEC>(base + 3 * BWD_TILE, vb, vs.n, 0, nk, dh);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // D = rowsum(dO o O): thread t sums half a row (4 of the 8 16-byte chunks).
+  {
+    const int r = threadIdx.x / 2;
+    float sum = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int c = 4 * (threadIdx.x % 2) + cc;
+      const uint32_t off = r * 128 + ((c ^ (r % 8)) << 4);
+      uint32_t x[4], y[4];
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+                   : "r"(do_s + off));
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(y[0]), "=r"(y[1]), "=r"(y[2]), "=r"(y[3])
+                   : "r"(o_s + off));
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        sum += bf16_lo(x[j]) * bf16_lo(y[j]) + bf16_hi(x[j]) * bf16_hi(y[j]);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (threadIdx.x % 2 == 0) {
+      d_rows[r] = sum;
+      delta[stat + q0 + r] = sum;
+    }
+  }
+  __syncthreads();  // D is in shared memory, and O's slot is free for the ring
+  float d_row[2], lse_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    d_row[r] = d_rows[row_lo - q0 + 8 * r];
+    lse_row[r] = lse[stat + row_lo + 8 * r];
+  }
+
+  float s[32], dp[32], acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = acc[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BLOCK_K;
+    if (t + 1 < n_tiles) {  // the next tile's copies fly during this tile's math
+      const uint32_t next = base + BWD_TILE * (2 + 2 * ((t + 1) & 1));
+      load_tile_bf16<64, VEC>(next, kb, ks.n, k0 + BLOCK_K, nk, dh);
+      load_tile_bf16<64, VEC>(next + BWD_TILE, vb, vs.n, k0 + BLOCK_K, nk, dh);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const uint32_t k_s = base + BWD_TILE * (2 + 2 * (t & 1));
+    const uint32_t v_s = k_s + BWD_TILE;
+
+    // S = Q K^T, then dP = dO V^T, two groups: P is formed while dP runs.
+    pin(s);
+    pin(dp);
+    wgmma_fence();
+    wgmma_abt(s, q_s, k_s);
+    wgmma_commit();
+    wgmma_abt(dp, do_s, v_s);
+    wgmma_commit();
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    pin(s);
+    const bool edge = k0 + BLOCK_K > nk || (causal && k0 + BLOCK_K - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      s[i] = exp2_approx(s[i] * scale_log2 - lse_row[r]);
+      if (edge) {
+        const int col = k0 + 8 * (i / 4) + col_q + i % 2;
+        if (col >= nk || (causal && col > row_lo + 8 * r)) s[i] = 0.f;
+      }
+    }
+    wgmma_wait_all();
+    pin(dp);
+    // dS = P o (dP - D), the gradient of the scaled logits.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - d_row[(i / 2) % 2]);
+    uint32_t ds[4][4];
+    pack_a(dp, ds);
+
+    // dQ += dS K
+    pin(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pin(ds[kk]);
+    wgmma_fence();
+    wgmma_ab(acc, ds, k_s);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pin(ds[kk]);
+    __syncthreads();  // this stage is free for tile t + 2's copies
+  }
+  const float mul[2] = {scale, scale};
+  store_tile_bf16(acc, dq + b * dqs.b + h * dqs.h, dqs.n, row_lo, nq, dh, mul);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(WG_THREADS)
+flash_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int nq, int nk,
+                    int dh, int npad, Strides qs, Strides ks, Strides vs, Strides dos,
+                    Strides dks, Strides dvs, float scale, float scale_log2, int causal) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const base_ptr = smem_raw + (base - smem_addr(smem_raw));
+  // K, V, then stage s of the ring: Q at base + TILE * (2 + 2 s), dO right
+  // after it; the stage's 64 LSE and 64 D values at base + 6 TILE + 512 s.
+  const uint32_t k_s = base, v_s = base + BWD_TILE;
+
+  const int k0 = blockIdx.x * BLOCK_K;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row_lo = k0 + 16 * warp + lane / 4;  // keys row_lo and row_lo + 8
+  const int col_q = 2 * (lane % 4);
+  const long long stat = ((long long)b * gridDim.y + h) * npad;
+
+  // Causal (Nq == Nk): queries before the tile's first key attend none of it.
+  const int t0 = causal ? k0 / BLOCK_Q : 0;
+  const int n_tiles = (nq + BLOCK_Q - 1) / BLOCK_Q;
+
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* dob = dout + b * dos.b + h * dos.h;
+  // Stage (t - t0) & 1's tiles of query tile t, and its LSE and D (16 16-byte
+  // copies each, by the first 32 threads).
+  auto load_stage = [&](int t) {
+    const int st = (t - t0) & 1;
+    const uint32_t q_dst = base + BWD_TILE * (2 + 2 * st);
+    load_tile_bf16<64, VEC>(q_dst, qb, qs.n, t * BLOCK_Q, nq, dh);
+    load_tile_bf16<64, VEC>(q_dst + BWD_TILE, dob, dos.n, t * BLOCK_Q, nq, dh);
+    if (threadIdx.x < 32) {
+      const int c = threadIdx.x % 16;
+      const float* src = (threadIdx.x < 16 ? lse : delta) + stat + t * BLOCK_Q + 4 * c;
+      cp_async16(base + 6 * BWD_TILE + 512 * st + 256 * (threadIdx.x / 16) + 16 * c, src, 16);
+    }
+  };
+  load_tile_bf16<64, VEC>(k_s, k + b * ks.b + h * ks.h, ks.n, k0, nk, dh);
+  load_tile_bf16<64, VEC>(v_s, v + b * vs.b + h * vs.h, vs.n, k0, nk, dh);
+  load_stage(t0);
+  cp_async_commit();
+
+  float s[32], dp[32], dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int t = t0; t < n_tiles; ++t) {
+    const int q0 = t * BLOCK_Q;
+    const int st = (t - t0) & 1;
+    if (t + 1 < n_tiles) load_stage(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const uint32_t q_st = base + BWD_TILE * (2 + 2 * st);
+    const uint32_t do_st = q_st + BWD_TILE;
+    const float* lse_st = reinterpret_cast<const float*>(base_ptr + 6 * BWD_TILE + 512 * st);
+    const float* d_st = lse_st + 64;
+
+    // S^T = K Q^T, then dP^T = V dO^T.
+    pin(s);
+    pin(dp);
+    wgmma_fence();
+    wgmma_abt(s, k_s, q_st);
+    wgmma_commit();
+    wgmma_abt(dp, v_s, do_st);
+    wgmma_commit();
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    pin(s);
+    // P^T: column c is query q0 + c, with its LSE.
+    const bool edge = q0 + BLOCK_Q > nq || (causal && q0 < k0 + BLOCK_K - 1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_st + 8 * j + col_q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        s[i] = exp2_approx(s[i] * scale_log2 - (e % 2 ? l2.y : l2.x));
+        if (edge) {
+          const int col = q0 + 8 * j + col_q + e % 2;
+          if (col >= nq || (causal && row_lo + 8 * (e / 2) > col)) s[i] = 0.f;
+        }
+      }
+    }
+    uint32_t pa[4][4];
+    pack_a(s, pa);
+    // dV += P^T dO runs while dS^T is formed.
+    pin(dv_acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pin(pa[kk]);
+    wgmma_fence();
+    wgmma_ab(dv_acc, pa, do_st);
+    wgmma_commit();
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // dP^T is done
+    pin(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(d_st + 8 * j + col_q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        dp[i] = s[i] * (dp[i] - (e % 2 ? d2.y : d2.x));
+      }
+    }
+    uint32_t dsa[4][4];
+    pack_a(dp, dsa);
+    // dK += dS^T Q
+    pin(dk_acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pin(dsa[kk]);
+    wgmma_fence();
+    wgmma_ab(dk_acc, dsa, q_st);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(dv_acc);
+    pin(dk_acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pin(pa[kk]);
+      pin(dsa[kk]);
+    }
+    __syncthreads();  // this stage is free for tile t + 2's copies
+  }
+  const float dk_mul[2] = {scale, scale}, dv_mul[2] = {1.f, 1.f};
+  store_tile_bf16(dk_acc, dk + b * dks.b + h * dks.h, dks.n, row_lo, nk, dh, dk_mul);
+  store_tile_bf16(dv_acc, dv + b * dvs.b + h * dvs.h, dvs.n, row_lo, nk, dh, dv_mul);
+}
+
+template <bool VEC>
+cudaError_t launch_bwd(const BwdArgs& a) {
+  static std::atomic<unsigned long long> dq_set{0}, dkdv_set{0};
+  cudaError_t err = allow_dynamic_smem(
+      dq_set, reinterpret_cast<const void*>(flash_bwd_dq_bf16<VEC>), BWD_SMEM);
+  if (err != cudaSuccess) return err;
+  err = allow_dynamic_smem(dkdv_set, reinterpret_cast<const void*>(flash_bwd_dkdv_bf16<VEC>),
+                           BWD_SMEM);
+  if (err != cudaSuccess) return err;
+  using bf = __nv_bfloat16;
+  const float scale_log2 = a.scale * 1.4426950408889634f;
+  const dim3 grid_q(a.npad / BLOCK_Q, a.heads, a.batch);
+  flash_bwd_dq_bf16<VEC><<<grid_q, WG_THREADS, BWD_SMEM, a.stream>>>(
+      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k), static_cast<const bf*>(a.v),
+      static_cast<const bf*>(a.o), static_cast<const bf*>(a.dout), a.lse, a.delta,
+      static_cast<bf*>(a.dq), a.nq, a.nk, a.dh, a.npad, a.qs, a.ks, a.vs, a.os, a.dos, a.dqs,
+      a.scale, scale_log2, a.causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_k((a.nk + BLOCK_K - 1) / BLOCK_K, a.heads, a.batch);
+  flash_bwd_dkdv_bf16<VEC><<<grid_k, WG_THREADS, BWD_SMEM, a.stream>>>(
+      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k), static_cast<const bf*>(a.v),
+      static_cast<const bf*>(a.dout), a.lse, a.delta, static_cast<bf*>(a.dk),
+      static_cast<bf*>(a.dv), a.nq, a.nk, a.dh, a.npad, a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs,
+      a.scale, scale_log2, a.causal);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -947,7 +1369,7 @@ cudaError_t launch(const Args& a, int dtype) {
   if (dtype == 0) return launch_f32<D>(a);
   const bool vec =
       rows_aligned16(a.q, a.qs) && rows_aligned16(a.k, a.ks) && rows_aligned16(a.v, a.vs);
-  return vec ? launch_bf16<D, true>(a) : launch_bf16<D, false>(a);
+  return vec ? launch_bf16<D, true, false>(a) : launch_bf16<D, false, false>(a);
 }
 
 }  // namespace
@@ -966,8 +1388,60 @@ extern "C" int texocr_flash_attention_fwd(
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, o, kv_lens, batch, heads, nq, nk, dh,
                Strides{q_sb, q_sh, q_sn}, Strides{k_sb, k_sh, k_sn}, Strides{v_sb, v_sh, v_sn},
-               Strides{o_sb, o_sh, o_sn}, scale, causal, static_cast<cudaStream_t>(stream)};
+               Strides{o_sb, o_sh, o_sn}, scale, causal, static_cast<cudaStream_t>(stream),
+               nullptr};
   return (int)(dh <= 64 ? launch<64>(a, dtype) : launch<128>(a, dtype));
+}
+
+// texocr_flash_attention_fwd for a bfloat16 call with dh <= 64 that is to be
+// differentiated by texocr_flash_attention_bwd: the same output, and each
+// row's base-2 log-sum-exp written to lse, a (B, H, Nq rounded up to 64)
+// float32 buffer (rows past Nq included).
+extern "C" int texocr_flash_attention_fwd_lse(
+    const void* q, const void* k, const void* v, void* o, const int* kv_lens, int batch,
+    int heads, int nq, int nk, int dh, long long q_sb, long long q_sh, long long q_sn,
+    long long k_sb, long long k_sh, long long k_sn, long long v_sb, long long v_sh,
+    long long v_sn, long long o_sb, long long o_sh, long long o_sn, float scale, int causal,
+    int dtype, float* lse, void* stream) {
+  if (batch <= 0 || heads <= 0 || nq <= 0 || nk <= 0 || dh <= 0 || dh > 64 || dtype != 1 ||
+      lse == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, o, kv_lens, batch, heads, nq, nk, dh,
+               Strides{q_sb, q_sh, q_sn}, Strides{k_sb, k_sh, k_sn}, Strides{v_sb, v_sh, v_sn},
+               Strides{o_sb, o_sh, o_sn}, scale, causal, static_cast<cudaStream_t>(stream), lse};
+  const bool vec =
+      rows_aligned16(a.q, a.qs) && rows_aligned16(a.k, a.ks) && rows_aligned16(a.v, a.vs);
+  return (int)(vec ? launch_bf16<64, true, true>(a) : launch_bf16<64, false, true>(a));
+}
+
+// The bfloat16 backward (dh <= 64): dq, dk and dv of o = attention(q, k, v)
+// from the forward's o and lse (texocr_flash_attention_fwd_lse) and the output
+// gradient dout, each operand given by its batch, head and row strides in
+// elements (dh stride 1). delta: a (B, H, Nq rounded up to 64) float32 scratch
+// that the first launch fills with rowsum(dout o o) and the second reads.
+extern "C" int texocr_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const float* lse, float* delta, void* dq, void* dk, void* dv, int batch, int heads, int nq,
+    int nk, int dh, long long q_sb, long long q_sh, long long q_sn, long long k_sb,
+    long long k_sh, long long k_sn, long long v_sb, long long v_sh, long long v_sn,
+    long long o_sb, long long o_sh, long long o_sn, long long do_sb, long long do_sh,
+    long long do_sn, long long dq_sb, long long dq_sh, long long dq_sn, long long dk_sb,
+    long long dk_sh, long long dk_sn, long long dv_sb, long long dv_sh, long long dv_sn,
+    float scale, int causal, void* stream) {
+  if (batch <= 0 || heads <= 0 || nq <= 0 || nk <= 0 || dh <= 0 || dh > 64 ||
+      (causal && nq != nk) || lse == nullptr || delta == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const BwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv, batch, heads, nq, nk, dh,
+                  (nq + BLOCK_Q - 1) / BLOCK_Q * BLOCK_Q,
+                  Strides{q_sb, q_sh, q_sn}, Strides{k_sb, k_sh, k_sn}, Strides{v_sb, v_sh, v_sn},
+                  Strides{o_sb, o_sh, o_sn}, Strides{do_sb, do_sh, do_sn},
+                  Strides{dq_sb, dq_sh, dq_sn}, Strides{dk_sb, dk_sh, dk_sn},
+                  Strides{dv_sb, dv_sh, dv_sn}, scale, causal,
+                  static_cast<cudaStream_t>(stream)};
+  const bool vec = rows_aligned16(q, a.qs) && rows_aligned16(k, a.ks) &&
+                   rows_aligned16(v, a.vs) && rows_aligned16(o, a.os) &&
+                   rows_aligned16(dout, a.dos);
+  return (int)(vec ? launch_bwd<true>(a) : launch_bwd<false>(a));
 }
 
 // How many blocks of the kernel that a call with this dtype and head dim
@@ -979,8 +1453,8 @@ extern "C" int texocr_flash_attention_blocks_per_sm(int dtype, int dh) {
   const void* kernel =
       dtype == 0 ? (d64 ? reinterpret_cast<const void*>(flash_fwd_f32<64>)
                         : reinterpret_cast<const void*>(flash_fwd_f32<128>))
-                 : (d64 ? reinterpret_cast<const void*>(flash_fwd_bf16<64, true>)
-                        : reinterpret_cast<const void*>(flash_fwd_bf16<128, true>));
+                 : (d64 ? reinterpret_cast<const void*>(flash_fwd_bf16<64, true, false>)
+                        : reinterpret_cast<const void*>(flash_fwd_bf16<128, true, false>));
   const int smem = dtype == 0 ? (d64 ? f32_smem_bytes<64>() : f32_smem_bytes<128>())
                               : 5 * 64 * (d64 ? 64 : 128) * 2 + 1024;
   int blocks = -1;

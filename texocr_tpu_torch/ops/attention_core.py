@@ -8,10 +8,12 @@ keys j <= i + (Nk - Nq).
 
 ``attention_core(use_flash=True)`` sends the calls the flash kernel takes
 (``flash_attention_supported``) to ``texocr_tpu_torch.ops.flash_attention``
-through ``FlashAttentionFunction`` (the kernel forward, the math path's
-backward); every other call takes the math path. That is a route by shape, as
-in the JAX package, not a fallback: a CUDA tensor routed to the kernel gets the
-kernel, with or without gradients.
+through ``FlashAttentionFunction``: the kernel forward, and for its backward
+the backward kernel where the call is bfloat16 with dh <= 64
+(``flash_backward_supported``; the encoder's), else the math path's VJP
+(float32, dh in (64, 128]). Every other call takes the math path. Those are
+routes by type and shape, as in the JAX package, not fallbacks: a CUDA tensor
+routed to a kernel gets the kernel, with or without gradients.
 """
 
 from __future__ import annotations

@@ -37,6 +37,53 @@ def attention_bound_ms(q, k) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def attention_backward_bound_ms(q, k) -> tuple:
+    """Least time for one unmasked bfloat16 attention backward on an H100
+    SXM, and what sets it: five products of 2 * Nq * Nk * dh per (batch,
+    head) (S for P, dP, dV, dQ, dK) at 989 TFLOP/s, however many a design
+    recomputes, against q, o, dO and dq (Nq rows), k, v, dk and dv (Nk rows)
+    moved once in bf16 and the float32 row statistics read, at 3.35 TB/s."""
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    t_ops = 10.0 * b * h * nq * nk * dh / H100_BF16_FLOPS * 1e3
+    t_bytes = ((4 * nq + 4 * nk) * dh * 2 + 4 * nq) * b * h / H100_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+#: How far the backward kernel's bf16 gradients may lie from the float32
+#: VJP of the same bf16 operands (each gradient's largest gap over its
+#: largest |value|): at most BACKWARD_FACTOR times as far as the plain bf16
+#: VJP's, or BACKWARD_FLOOR. The two round in different places: the kernel
+#: rounds dS = P o (dP - D) to bf16 as the operand of dQ and dK, the plain
+#: version rounds dP to bf16 (the cast of its probabilities back to float32);
+#: both round P for dV and the gradients themselves to bf16. The floor is two
+#: bf16 units of roundoff (u = 2^-8 each): one from the rounded operand (dS,
+#: or P for dV), one from the gradient's own rounding.
+BACKWARD_FACTOR = 2.0
+BACKWARD_FLOOR = 2 ** -7
+
+
+def backward_gaps(got, plain, ref) -> dict:
+    """The backward kernel's (dq, dk, dv) ``got`` and the plain bf16 version's
+    ``plain`` against the float32 VJP ``ref``, under the limits above: per
+    gradient the kernel's and the plain version's gap (largest |difference|
+    over largest |ref|), the kernel's gap from the plain version's, its
+    limit, and ``ok``."""
+    def gap(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+    out, ok = {}, True
+    for name, g, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
+        kernel, base = gap(g, r), gap(p, r)
+        limit = max(BACKWARD_FACTOR * base, BACKWARD_FLOOR)
+        good = bool(torch.isfinite(g.float()).all()) and kernel <= limit
+        out[name] = {"kernel": kernel, "plain": base, "kernel_vs_plain": gap(g, p),
+                     "limit": limit, "ok": good}
+        ok = ok and good
+    out["ok"] = ok
+    return out
+
+
 def attention_f64(q, k, v, scale) -> torch.Tensor:
     """Unmasked attention in float64: the yardstick of the float32 kernel's
     and the plain float32 version's errors."""
