@@ -1,287 +1,131 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port (texocr_tpu_torch) on one NVIDIA GPU.
+"""Gates the PyTorch/CUDA port (texocr_tpu_torch) on one NVIDIA GPU, and times
+its kernels for PERF.md's kernel table.
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure:
+End-to-end numbers (latency, images/s, step time, MFU, idle share) come from
+portbench/ alone; this script times only kernels. Phases, each fatal on
+failure (phases 15-18 run before 14):
   1. device: a CUDA device must be present; prints its name and power limit.
-  2. build: compiles every CUDA kernel of the serving path from csrc/, and
-     counts tensor-core instructions in the built library (cuobjdump -sass):
-     all twelve instantiations of the flash kernels must hold as many HGMMA
-     (wgmma) instructions as their loops issue (HGMMA below): the bfloat16
-     forward (head dim 64 or 128; rows on 16 bytes or not; at 64 also with
-     the row statistics the backward reads), float32 (3xTF32; head dim 64 or
-     128), and the bfloat16 backward's two launches (rows on 16 bytes or
-     not).
-  3. kernels: each kernel against its plain PyTorch version on the card, at
-     test shapes (masks, ragged tiles, head dims, row alignments) and at the
-     serving path's shapes; then timings of the kernel, the plain version and one PyTorch
-     library call as a yardstick, at the four shapes of the serving path,
-     with L2-warm and L2-cold inputs; and at phase 16's per-rank training
-     shapes (RANK_SHAPES: (64, 8, 631, 64) and (32, 4, 631, 64) in bf16),
-     checked and timed beside the bound and the library call.
- 3d. flash backward: the bf16 backward kernel (it replaces no Pallas
-     kernel) through FlashAttentionFunction against the plain bf16 VJP and
-     the float32 VJP of the same operands at BACKWARD_SHAPES (the training
-     shapes: (128, 8, 631 | 379, 64), phase 16's ranks), causal and not, and
-     at edge cases (ragged tiles, Nq != Nk, dh 48, 40 and 36, rows off 16
-     bytes). Fatal outside ops.bench.backward_gaps's limits (the kernel rounds
-     dS to bf16 where the plain version rounds dP: each gradient's largest
-     gap from float32, over its largest |value|, within twice the plain
-     version's or 2^-7, two bf16 roundings), other than one backward launch
-     a call, an output other than the forward's without statistics,
-     gradients in other strides than their operands, or row statistics more
-     than LSE_TOL off float32's.
-     Prints its time at (128, 8, 631 | 379, 64) beside its bound, the plain
-     version, the forward with and without statistics, and
+  2. build: compiles the flash source and counts tensor-core instructions in
+     the built library (cuobjdump -sass): all twelve instantiations of the
+     flash kernels must hold as many HGMMA (wgmma) instructions as their
+     loops issue (HGMMA below): the bfloat16 forward (head dim 64 or 128;
+     rows on 16 bytes or not; at 64 also with the row statistics the
+     backward reads), float32 (3xTF32; head dim 64 or 128), and the
+     bfloat16 backward's two launches (rows on 16 bytes or not). Prints
+     ptxas's registers, spills and warnings and the blocks per SM.
+  3. kernels: the flash forward against its plain version at test shapes
+     (masks, ragged tiles, head dims, row alignments) and at every shape of
+     the serving, training, per-rank and curriculum paths: float32 within
+     F32_TOL, bfloat16 within max(2 x the plain bf16 version's error from
+     float32, BF16_FLOOR), any other layout bit-equal to contiguous copies.
+     Table: at each FLASH_TIMED shape, the kernel's, the plain version's
+     and scaled_dot_product_attention's ms, L2-warm and cold, beside the
+     bound and the library's kernels.
+ 3d. flash backward: the bf16 backward kernel through FlashAttentionFunction
+     against the plain bf16 VJP and the float32 VJP of the same operands at
+     BACKWARD_SHAPES, causal and not, and at edge cases (ragged tiles,
+     Nq != Nk, dh 48, 40 and 36, rows off 16 bytes), within
+     ops.bench.backward_gaps's limits; one backward launch a call, the
+     forward's output unchanged by its statistics, gradients in their
+     operands' strides, row statistics within LSE_TOL of float32's. Table:
+     at BACKWARD_TIMED, its ms beside its bound, the plain version (the math
+     path's VJP), the forward with and without statistics and
      scaled_dot_product_attention's backward.
- 3b. decode attention: the decode step's attention kernel
-     (csrc/decode_attention.cu; it replaces no Pallas kernel) against its
-     plain version at the main path's calls (ops.bench.DECODE_CASES: the
-     cross cache of 256 full canvases in bf16 and int8, the self cache at
-     t = 255 plain and int8 split (t0 = 224), the served batch of 16 at both
-     canvases, beam 5, a key mask, float32), each on DA_SEEDS seeds. Fatal
-     outside ops.bench.decode_gaps's limits (float32 sums in another order:
-     at most 0.1% of bf16 outputs more than one bf16 ulp from the plain
-     version's, each within 2^-7 of its row's largest |output|; float32
-     within 2e-6). Prints ptxas's registers per instantiation, the worst
-     reading of each call over the seeds, and the kernel's time beside its
-     bound (bytes), the plain version and scaled_dot_product_attention. Its
-     launches on the main path are counted in phases 5 and 9.
-  3c. routed experts: the expert kernels (ops/moe_experts.py, Triton; they
-     replace no Pallas kernel) against the expert loop at decode's (1,536
-     rows) and prefill's (245,760) shapes, timed beside their bound; a
+ 3b. decode attention: the decode step's kernel against its plain version
+     at ops.bench.DECODE_CASES, each on DA_SEEDS seeds, within
+     ops.bench.decode_gaps's limits, one launch a call. Prints ptxas's
+     registers per instantiation. Table: at DA_TIMED, its ms beside its
+     bound (bytes), the plain version and scaled_dot_product_attention.
+ 3c. routed experts: the Triton expert kernels against the expert loop at
+     decode's (1,536 rows) and prefill's (245,760) shapes within MOE_TOL; a
      3-layer model at Kimi-VL-A3B's widths whose 8-chunk graphs' tokens are
-     bit-equal to the eager decode's; then kimivl.batch's own path:
-     TexOCR with portbench/configs/kimi-vl-a3b.json whole (27 layers),
-     its state dict taken in place, generate_batch on 256 full canvases x
-     256 greedy steps. Fatal: moe_experts.launches, zeroed just before each
-     replayed call, unequal to 2 x 26 x (1 + 256), the call's moe.expert_rows
-     unequal to 256 x (160 + 256) x 6 x 26, or an EOS served (its head row is
-     zeroed, so every row decodes to max_len). The kernels line reports
-     that call's count.
- 4. golden: the committed reference goldens through the port on the card in
-     float32 (kernel path): exact greedy tokens, encoder output within 1e-4;
-     the float32 kernel's launch count is read from this phase.
-  5. serve: the flagship configuration at full width in bfloat16 with seeded
-     random weights, answering single requests of three bucket sizes and
-     batches of 8 full canvases through TexOCR, whose CUDA engine decodes
-     through CUDA graphs: each key's first call (its capture) comes first, and
-     each is timed REPEATS times (median); launch counts are read from this
-     phase only: flash 4 an encode, decode attention 8 a decoded step (2
-     a decoder layer, bf16 caches).
-  6. profile: where the eager path's serving time goes, for a batch of 8 full
-     canvases: encode and a DECODE_STEPS-step greedy decode, wall time (host
-     clock) and device kernels (torch.profiler, CUDA activity).
- 6b. graphs: models.graphed.make_graphed_generate on the serving batch (8 full
-     canvases, bf16, DECODE_STEPS tokens) in greedy, int8 (both caches), beam
-     5 and sampling at 0.3, each beside the eager path. Fatal: tokens
-     bit-equal to the eager path's (the generator reseeded alike), beam's best
-     scores too, two successive sampled calls that differ, 4 flash launches
-     per encode counted on replays, and the float32 golden model's greedy
-     tokens exact through the graphs (the package's float-input engine,
-     make_graphed_generate(..., float_input=True)). Prints per mode, eager and graph in this
-     call: decode wall (median of REPEATS), device time, kernels a step, busy
-     share; the capture's seconds and the memory the key holds; encode wall
-     and device time for both (phase 6's eager numbers for greedy and
-     encode).
-  7. encoder: kernel path against the plain path at the full canvas, float32.
-  8. train: texocr_tpu_torch.training.loop.train_model on the card, the
-     flagship at full width in bfloat16 with config/config.yml's training keys
-     (batch 128, Adam at lr 5e-4, seq_pad_multiple 32, masked loss, shuffles,
-     seed 42), on a synthetic pickled dataset (two full batches of (160, 1008)
-     canvases and one of (64, 512), a val split of one full batch), 2 epochs
-     with a checkpoint each, augmentation on as the training CLI has it. Fatal
-     checks: finite epoch losses (a non-finite step would make its epoch's
-     mean non-finite), the second epoch's below the first's, exactly 4 flash
-     launches per train step and per eval step and 4 backward launches per
-     train step (flash_attention_backward.launches), encoder gradients on the kernel
-     path against the plain path (float32 and bfloat16, 8 full canvases), the
-     bf16 kernel against its plain version at the training shape (phase 3
-     holds it at both training buckets too), and the losses of two steps
-     after loading the checkpoint against two steps without the save. Prints
-     step time (median, least and most per bucket), images/s, the host
-     loader's time per batch alone, peak memory, a profiled step (device time
-     over that call's own wall time) and the kernel at the training shape
-     beside its bound, the library call, the backward kernel and the math
-     path's VJP.
- 8b. device data: train_model with device_data and device_data_augment on
-     (the dataset resident on the card as uint8, batches picked and augmented
-     there, 16 steps a call), the flagship as in phase 8 on 8 full-canvas
-     batches and 2 of (64, 512) (10 steps an epoch), 2 epochs, val resident.
-     Fatal: finite epoch losses, the second below the first, 4 flash launches
-     per train and eval step and 4 backward launches per train step, a resume
-     from its checkpoint with the same step
-     count and weights. Prints both epochs' wall time beside the host
-     loader's on the same data in the same run (augmentation on the host),
-     the synchronised full-canvas step, images/s, a profiled call's device-busy
-     share and peak memory. Then one (160, 1008) bucket of RESIDENT_ROWS rows
-     (RESIDENT_DISTINCT distinct canvases with gray stroke edges, repeated)
-     staged at pack_bits 8 and then 4, each beside one call of 16 steps:
-     staging time, resident GB, peak memory and step time; fatal: finite
-     losses, the 4-bit gather within 15.5/255 of the 8-bit one and exact at
-     0 and 1.
-  9. int8: a batch of 8 full canvases with kv_quant and self_kv_quant int8,
-     DECODE_STEPS steps without EOS, through TexOCR.generate_batch. Fatal:
-     the int8 caches' step logits within 5% of the largest |logit| of the
-     unquantized cache's, over each row's steps up to its first differing
-     token, and the decode attention kernel launched 8 times a decoded step
-     on the int8 caches. Prints the share of tokens that agree (the decode's
-     times are phase 6b's).
- 10. sample: float32, 2 full canvases, SAMPLE_CHECK_STEPS steps at temperature
-     1e-4 against greedy (a row may leave greedy only at a step whose top two
-     logits lie within 20 x temp, where the Gumbel noise can decide); bf16, 8
-     full canvases, temperature 0.3, DECODE_STEPS steps: every sampled token
-     in the top 99 of its step's logits. Prints generate_batch's time.
- 11. beam: bf16, 8 full canvases x beam 5, DECODE_STEPS steps (generate_batch's
-     time and images/s); float32 at 2 full canvases and
-     BEAM_CHECK_STEPS steps (two chunks, across an int8 merge), with and
-     without int8 self-KV: beam 1 equals greedy, and beam 5's best score
-     equals the log-prob of its tokens fed through the same cache (and,
-     unquantized, the teacher-forced forward's; models.beam.sequence_logprob)
-     within rtol 2e-4.
- 12. http: ServingBatcher(max_batch=8) behind make_server(port=0), PNG bytes
-     from a stdlib encoder that filters rows as PIL does: a solo POST returns
-     engine(img)'s ids, then 32 POSTs (grey and RGB) of three canvas sizes at
-     concurrency 8 (JSON contract, /healthz, a 400 for a body that is no
-     image). Prints p50 and p99 latency, decode_image's time per request and
-     the batches formed.
- 13. eval: evaluation.evaluate.test_model on a pickled test split of two
-     batches of 8 full canvases, greedy and beam 5, on the CUDA model: each
-     batch decodes through the CUDA graphs of its key (float input), the
-     first batch of a key capturing them. Fatal unless its metrics equal
-     those computed from TexOCR.generate_batch on the same collated batches,
-     its pairs_out tokens equal, bit for bit, an eager generate on the same
-     collated float batches, and the flash kernel launched 4 times per
-     encode (each replay, and each capture's eager warm-up encode). Prints
-     per mode the keys, the first key's capture seconds, each batch's wall
-     time on the graphs after capture beside the eager wall time of the same
-     batch, and from how many batches of a key the graphs win.
- 13b. variants: the model variants at the flagship's full width, bf16, seeded
-     random weights, on the serving batch of 8 full canvases. patch
-     (encoder.embed_layer: patch) and glu false (the decoder's dense + gelu
-     MLP): a greedy TexOCR.generate_batch of DECODE_STEPS tokens through the
-     CUDA graphs, fatal unless bit-equal to the eager generate, with 4 flash
-     launches per encode and the float32 encode on the kernel path within
-     F32_TOL of the plain path (glu false keeps the flagship's encoder, so
-     phase 7's reading stands for it); prints encode and decode wall (graph
-     replays). no cross (decoder.cross_attend: false): VARIANT_TRAIN_STEPS
-     train steps at batch TRAIN_BATCH on full canvases, fatal unless the
-     losses are finite and no flash kernel launches (the step does not encode:
-     the decoder reads no encoder output), and unless TexOCR.generate_batch
-     and make_graphed_generate raise ValueError; prints step time and peak
-     memory. maps: a teacher-forced decoder(..., return_attn=True) at batch 8
-     x MAPS_TOKENS, fatal unless its cross maps are (8, 8, MAPS_TOKENS, 631),
-     every row sums to 1 within F32_TOL and no flash kernel launches (the maps
-     take the math path); then the attention-maps tool's main on one
-     full-canvas PNG, fatal unless it writes its overlays and summary.json and
-     an overlay reads back through decode_png at (160, 1008).
- 15. data (run before 14, which then holds its launches too): the data path
-     on the card's machine, which has no PIL, PyYAML or regex. (a) The BPE
-     encoder built from csrc/bpe_encoder.cpp by g++ and loaded; the 15
-     golden texts of tests/goldens/tokenizer_encode.json exact through encode
-     and encode_batch, which must make one native call; a retrain on the
-     golden corpus (tokenizer_train.json: 300 tokens, x20) equal to its 41
-     merges; encode_batch's labels/s on ENCODE_LABELS seeded labels, native
-     against pure Python, ids equal. (b) split_data on a seeded master file
-     (DATA_SPLITS rows) with a .json data config; render_data with the latex
-     chain where its binaries are, else mathtext where matplotlib imports,
-     else the phase writes each PNG at the canvas rule with encode_png (the
-     line says which); prune_equations; every PNG centred on a DATA_CANVAS
-     canvas; pickle_data per split, eager and lazy. (c) training.cli on each
-     set of pickles: the flagship at full width, config/config.yml's training
-     keys (batch 128), 1 epoch of 2 train steps and 1 val step. Fatal: a
-     build or golden mismatch, fewer rendered rows than DATA_SPLITS, a
-     non-finite loss, other than 4 flash launches per encode, and a lazy
-     batch (augmentation off) unequal to the eager one. Prints the host
-     times with the host CPU's model and the card's name and power limit:
-     build s, retrain s, labels/s, render s, each pickle's build s and MB,
-     each epoch's wall time.
- 16. parallel (run before 14): the data x model process mesh on the card,
-     the bf16 flagship at full width unless said, fatal on every check.
-     (a) A process group of one rank over NCCL: train_model with phase 8's
-     keys, data and seed under mesh {data: -1, model: 1} (the mesh, the
-     global loss's count and the gradients' all-reduce run on the card):
-     epoch losses within WORLD1_RTOL of phase 8's, 4 flash launches per
-     step; prints the synchronised full-canvas step beside phase 8's and the
-     gradient all-reduce's bytes and time, read from a trace written by
-     telemetry.profile_trace. (b) Two ranks sharing cuda:0 over gloo (NCCL
-     refuses two ranks on one GPU), spawned by parallel.dryrun.spawn:
-     PARALLEL_STEPS Adam steps under {data: 2} at global batch 128 and under
-     {model: 2} at 32, losses within PARALLEL_BF16_RTOL of one process's on
-     the same global batches, 4 flash launches per step; each rank holds the
-     kernel at its shapes against its plain version; float32 mesh_generate
-     of 2 full canvases x 32 steps under {model: 2} and under {data: 2}, in
-     greedy, sampling at 0.3 from one seed, beam 5, and greedy with int8
-     cross and self caches: tokens equal to one process's, 4 flash launches
-     per encode; prints per rank the step times, peak memory, a profiled
-     step's share in collectives and each decode's seconds. (c)
-     dryrun_multichip(2) on cuda:0. These are correctness phases: gloo
-     stages CUDA tensors through the host and the ranks time-share one
-     card, so no time here is a parallel speed.
- 17. tools (run before 14): the data tools and the training tool they
-     chain (texocr_tpu_torch/tools/). (a) make_demo_dataset's entry points
-     raise an ImportError naming the package they miss (PIL for the bitmap
-     renders and main, matplotlib for the typeset render and main
-     --typeset) and write no file, and where the package is there render
-     onto a profile canvas (the card's machine has PIL, not matplotlib); its
-     equations (DEMO_N --realistic, seed DEMO_SEED), split writer (ink drawn
-     by the phase: (160, 1008) canvases, every 8th train row (96, 1008)) and
-     pickles build the dataset; pickle_partial_typeset on the build with
-     its last DEMO_TORN train images deleted must take exactly the rows
-     left, with the build's labels row for row. (b) One fixed batch of
-     DEMO_BATCH full canvases through the flagship from one seed without
-     and with remat: the first two steps' losses within BF16_FLOOR
-     (relative), 4 and 8 flash launches a step (the backward recomputes
-     each encoder sub-layer's forward) and 4 backward launches a step in
-     both; prints the synchronised step time,
-     peak memory and a profiled step (device time, busy share) of each. (c) demo_train on the build at the flagship's
-     full width with stage DEMO_STAGE's curriculum arguments cut to 2
-     epochs and 2 test batches (--device_data --augment --batch_size 32
-     --eval_batch_size 32 --eval_max_len 475), then again with stage W's
-     --remat --pack_bits 4 --host_val, warm-started from the first run's
-     checkpoints: fatal unless the epoch losses are finite, the training's
-     flash launches are 4 (8 with remat) a train step and 4 a val step,
-     test_model launches 4 per encode through the CUDA graphs (each replay
-     and the capture's warm-up), and the metrics file has the JAX tool's
-     keys; prints per run the steps, epoch losses and seconds, peak memory,
-     the test split's capture and replay times. (d) train_curriculum
-     --dry_run --stages A-C: 3 builds and 3 trainings through the port's
-     modules, the warm starts chained, the metrics under --results_dir.
-     (e) The bf16 kernel at DEMO_SHAPE against its plain version, and
-     timed as phase 3 times its shapes, beside the bound and the library.
- 18. orbax (run before 14): the JAX package's orbax checkpoints, read and
-     written by the port without JAX (checkpoint/zstd.py, ocdbt.py,
-     orbax.py). (a) tests/goldens/jax_orbax_fixture, written by JAX's
-     orbax_io (f32, bf16, int32, int64 and scalar leaves, one sharded 2 x 2
-     into four chunks, one stored out of line, Adam's state with a clip and
-     a schedule), read on the card's installation: every leaf bit-equal to
-     orbax_fixture_tree's seed; prints the libzstd it loaded. (b) Phase 8's
-     latest checkpoint converted to the JAX layout (jax_from_state_dict,
-     jax_opt_state) and written by orbax.save_checkpoint, read back through
-     io.load_checkpoint bit-equal to state.pt (model, Adam moments and
-     steps, epoch, step); train_model resumed from it and from a copy of the
-     state.pt directory for one more epoch of phase 8's data (augmentation
-     off): equal losses (bit-equal expected, else within ORBAX_RESUME_RTOL)
-     and 4 flash launches per train and val step; TexOCR(model_path=...)
-     from each serving a batch of 8 full canvases x DECODE_STEPS through the
-     CUDA graphs: bit-equal tokens, 4 launches a replay. Prints write and
-     read s and MB/s, the resumed epoch's s a step and the launches.
- 14. launched shapes: every flash launch from phase 3 on is recorded (shapes,
-     type, strides, alignment, scale, causal, kv_lens) by the phase that made
-     it; each signature that phases 4-13b and 15-18 launched and phase 3 did
-     not check (the batcher's padded batches, the float32 checks at 2
-     canvases, the golden model's, evaluation's captures, phase 17's batches
-     of 32) is held against the plain version here, on fresh
-     operands of the same strides and alignment, as phase 3 holds its cases.
-Every phase that encodes asserts 4 flash launches per encode on its main
-path; a CUDA graph's replay counts the launches its capture made, and a
-capture counts none; phase 15 trains through training.cli. Phases 5, 9-13
-and 13b decode through TexOCR, and phase 13's test_model through its own
-float-input engines, so through CUDA graphs; the eager checks of phases 4,
-9-11, 13 and 13b and phase 16's decodes stay eager. Then the seconds each phase took, one
-JSON line of per-kernel numbers, the card's name and power limit, and the last
-line {"ok": true, "device": {...}}.
+     bit-equal to the eager decode's, 2 launches an expert layer a step and
+     prefill and every routed row counted; kimivl.batch's own path (TexOCR
+     with portbench/configs/kimi-vl-a3b.json whole, its state dict taken in
+     place, generate_batch on 256 full canvases x 256 steps): a replayed
+     call launches 2 x 26 x (1 + 256) times, routes 256 x (160 + 256) x 6 x
+     26 rows and serves no EOS. Table: the kernels' ms beside their bound,
+     routed_plain's at decode and the expert loop's.
+  4. golden: the committed reference goldens in float32 on the kernel path:
+     exact greedy tokens, encoder output within 1e-4; the float32 kernel's
+     launches.
+  5. serve: TexOCR (the flagship at full width, bf16, seeded weights) on
+     single requests of three bucket sizes and a batch of 8 full canvases,
+     each key captured first and then replayed once: valid ids, 4 flash
+     launches an encode and 8 decode attention launches a decoded step.
+ 6b. graphs: make_graphed_generate on the serving batch in greedy, int8,
+     beam 5 and sampling: tokens (and beam's scores) bit-equal to the eager
+     decode's from the same generator state, two sampled calls that differ,
+     4 flash launches an encode on replays; the float32 golden model's
+     greedy tokens exact through the float-input graphs.
+  7. encoder: the full-canvas float32 encoder, kernel path against plain.
+  8. train: train_model on the flagship in bf16 with config/config.yml's
+     training keys on a synthetic dataset, 2 epochs: encoder gradients on
+     the kernel path against the plain path (float32 within GRAD_TOL, bf16
+     within max(2 x the bf16 plain path's distance, BF16_FLOOR)), finite
+     epoch losses that fall, 4 flash launches a train and eval step and 4
+     backward launches a train step, two steps after loading the checkpoint
+     equal to two without the save.
+ 8b. device data: train_model with the dataset resident on the card and
+     augmented there: finite falling losses, the launches of phase 8, a
+     resume with the same step and weights; then RESIDENT_ROWS full
+     canvases staged at pack_bits 8 and 4, each beside one finite call of
+     DD_STEPS_PER_CALL steps, the 4-bit gather within PACK4_TOL of the 8-bit
+     one and exact at 0 and 1.
+  9. int8: int8 cross and self caches on 8 full canvases: step logits within
+     INT8_BUDGET of the unquantized caches', 4 flash launches and 8 decode
+     attention launches a decoded step.
+ 10. sample: float32 at temperature 1e-4 leaves greedy only where the top
+     two logits lie within 20 x temp; bf16 at 0.3: every token in its step's
+     top TOPK; 4 flash launches an encode.
+ 11. beam: bf16 beam 5 through the graphs (4 flash launches); float32 with
+     and without int8 self-KV: beam 1 equals greedy, beam 5's scores equal
+     its tokens' log-prob within SCORE_RTOL.
+ 12. http: the HTTP server over the micro-batcher: a solo POST equals
+     engine(img), 32 POSTs (grey and RGB PNGs filtered as PIL writes them)
+     at concurrency 8 answer valid JSON, decode_image gives back each
+     canvas, /healthz and a 400 for no image; 4 flash launches an encode.
+ 13. eval: test_model greedy and beam 5 through its CUDA graphs: metrics
+     equal to generate_batch's on the same batches, pairs_out tokens
+     bit-equal to the eager generate's, 4 flash launches an encode (replays
+     and each key's capture warm-up).
+ 13b. variants: patch and glu false through the graphs, bit-equal to eager,
+     4 launches an encode, float32 encode within F32_TOL of the plain path;
+     no cross: finite train losses, no flash launch, every decode entry
+     point raises ValueError; maps: the cross maps' shape, rows summing to 1,
+     no flash launch; the attention-maps tool writes its overlays.
+ 15. data (no PIL, PyYAML or regex): the g++-built BPE encoder on the
+     goldens in one native call, a retrain equal to the golden merges, the
+     native ids equal to pure Python's on ENCODE_LABELS labels; split_data,
+     render_data, prune_equations, pickle_data eager and lazy; training.cli
+     on each: one epoch, finite losses, 4 flash launches an encode, lazy
+     batches equal to eager.
+ 16. parallel: (a) an NCCL world of one: phase 8's losses within
+     WORLD1_RTOL, 4 launches a step; (b) two ranks on cuda:0 over gloo:
+     losses within PARALLEL_BF16_RTOL of one process's under {data: 2} and
+     {model: 2}, 4 launches a step, the kernel at each rank's shapes, the
+     float32 decodes' tokens equal to one process's with 4 launches; (c)
+     dryrun_multichip(2).
+ 17. tools: make_demo_dataset's ImportErrors and build, pickle_partial_typeset
+     on a torn build; a fixed batch without and with remat: losses within
+     BF16_FLOOR, 4 and 8 flash launches a step, 4 backward in both;
+     demo_train plain and stage W: finite losses, its launches a train step
+     and 4 an encode in test_model, the JAX tool's metrics keys;
+     train_curriculum --dry_run chains the port's tools.
+ 18. orbax: the JAX-written fixture bit-equal to its seed; phase 8's
+     checkpoint in the JAX layout read back bit-equal; train_model resumed
+     from it and from state.pt with equal losses and 4 launches a step;
+     TexOCR from each serving bit-equal tokens with 4 launches.
+ 14. launched shapes: every flash launch signature that phases 4-18 made
+     and phase 3 did not check, held against the plain version here.
+Launch gates read changes of the program's telemetry counters (COUNTED)
+across the calls they count; a CUDA graph's replay adds the counts its
+capture held back. Then the seconds each phase took, one JSON line of the
+table's numbers and launch counts (``kernels``), the card's name and power
+limit, and the last line {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -289,7 +133,6 @@ import importlib.util
 import io
 import json
 import os
-import platform
 import re
 import shutil
 import struct
@@ -307,6 +150,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
+from texocr_tpu_torch import telemetry  # noqa: E402
 from texocr_tpu_torch.ops.bench import (  # noqa: E402
     SERVING_SHAPES,
     attention_bound_ms,
@@ -331,14 +175,11 @@ HGMMA = {
     **{f"flash_bwd_dq_bf16<{vec}>": 3 * 4 for vec in ("true", "false")},
     **{f"flash_bwd_dkdv_bf16<{vec}>": 4 * 4 for vec in ("true", "false")},
 }
-REPEATS = 3  # timed runs per request and per batch; the median is reported
 BATCH = 8  # full canvases per batch
 DECODE_STEPS = 350  # the serving default max_len; random weights never emit EOS
 TRAIN_BATCH = 128  # config/config.yml batch_size
 TRAIN_BUCKETS = (((160, 1008), 2), ((64, 512), 1))  # (canvas, batches) of the train split
 TRAIN_EPOCHS = 2
-TIMED_EPOCHS = 4  # further epochs, each step synchronised, for the step time
-TRAIN_SHAPE = (TRAIN_BATCH, 8, 631, 64)  # the encoder's self-attention, full canvases
 DD_BUCKETS = (((160, 1008), 8), ((64, 512), 2))  # phase 8b's train split: 10 steps an epoch
 DD_STEPS_PER_CALL = 16  # device_data_steps_per_call, and the steps beside the resident bucket
 RESIDENT_ROWS = 50_000  # phase 8b's staged (160, 1008) bucket
@@ -366,22 +207,33 @@ MAPS_PNGS = 8  # the attention-maps tool's --max_tokens on the card
 PARALLEL_STEPS = 2  # train steps per mesh of phase 16b
 PARALLEL_BATCHES = {"data": 128, "model": 32}  # phase 16b's global batch per mesh
 PARALLEL_DECODE = (2, 32)  # phase 16b's float32 decode: full canvases, steps
-PARALLEL_TIMED = 4  # phase 16a's synchronised full-canvas steps
 WORLD1_RTOL = 5e-4  # phase 16a's epoch losses against phase 8's (bf16; atomics reorder sums)
 PARALLEL_BF16_RTOL = 1e-3  # phase 16b's bf16 losses against the single process's
 PARALLEL_SAMPLE_SEED = 16  # phase 16b's sampling generator, the same in every process
 # Phase 16b's float32 decodes: greedy, sampling at 0.3, beam 5, and greedy
 # with int8 cross and self caches.
 PARALLEL_DECODE_MODES = ("greedy", "sample", "beam", "int8")
-# Phase 16's per-rank encoder attention, (B, H, N, dtype): {data: 2} at batch
-# 128, {model: 2} at batch 32, the float32 decodes' encode of 2 canvases
-# under {model: 2} and of 1 under {data: 2}, and the dry run's 32 x 64 images
-# on 2 ranks.
+# Phase 3's timed flash forward shapes (B, H, N, dh), split-head: the
+# serving path's in both types; in bfloat16 also the training batch, phase
+# 16's ranks ({data: 2} at batch 128, {model: 2} at 32) and phase 17's
+# curriculum batch.
+FLASH_TIMED = {torch.bfloat16: [*SERVING_SHAPES, (128, 8, 631, 64), (64, 8, 631, 64),
+                                (32, 4, 631, 64), (32, 8, 631, 64)],
+               torch.float32: SERVING_SHAPES}
+EAGER_ITERS = 3  # timed eager calls of what a CUDA graph cannot capture
+# The telemetry counters the launch gates read, by short name.
+COUNTED = {"flash": "flash_attention.launches", "backward": "flash_attention_backward.launches",
+           "decode": "decode_attention.launches", "moe": "moe_experts.launches",
+           "keys": "graphs.keys"}
 # The backward kernel's shapes, (B, H, N) at dh 64: base.train's full
 # canvases and (96, 1008) rows, phase 16's ranks; the first two are timed.
 BACKWARD_SHAPES = ((128, 8, 631), (128, 8, 379), (64, 8, 631), (32, 4, 631))
 BACKWARD_TIMED = BACKWARD_SHAPES[:2]
 LSE_TOL = 1e-4  # the kernel's base-2 row log-sum-exp against float32's (ex2.approx, sums)
+# Phase 16's per-rank encoder attention, (B, H, N, dtype): {data: 2} at batch
+# 128, {model: 2} at batch 32, the float32 decodes' encode of 2 canvases
+# under {model: 2} and of 1 under {data: 2}, and the dry run's 32 x 64 images
+# on 2 ranks.
 RANK_SHAPES = ((64, 8, 631, torch.bfloat16), (32, 4, 631, torch.bfloat16),
                (2, 4, 631, torch.float32), (1, 8, 631, torch.float32),
                (2, 8, 9, torch.float32))
@@ -403,10 +255,9 @@ MOE_GRAPH_LAYERS = 3
 MOE_GRAPH_BATCH = 8
 MOE_GRAPH_STEPS = 256
 # kimivl.batch's shape through TexOCR.generate_batch: 256 canvases of
-# (160, 1008), 256 greedy steps; replayed calls checked and timed.
+# (160, 1008), 256 greedy steps; a replayed call checked.
 MOE_MAIN_BATCH = 256
 MOE_MAIN_STEPS = 256
-MOE_MAIN_CALLS = 2
 ORBAX_FIXTURE = os.path.join(REPO, "tests", "goldens", "jax_orbax_fixture")
 ORBAX_FIXTURE_SEED = 13
 ORBAX_RESUME_RTOL = RESUME_RTOL  # phase 18's resumed epoch from the JAX layout against state.pt's
@@ -561,6 +412,8 @@ def check_flash_kernel(fa, gen) -> dict:
         # phase 16's per-rank shapes: {data: 2} at batch 128, {model: 2} at
         # batch 32 and its float32 decode of 2 canvases, the dry run's encode
         *((b, h, n, n, 64, False, None, dtype, "split") for b, h, n, dtype in RANK_SHAPES),
+        # phase 17's curriculum batch of 32 full canvases
+        (32, 8, 631, 631, 64, False, None, bf16, "split"),
     ]
     errors = {}
     for b, h, nq, nk, dh, causal, lens, dtype, layout in cases:
@@ -687,15 +540,40 @@ def hold_bf16(fa, got, plain, q, k, v, scale, causal=False, kv_lens=None):
     return err, tol, note
 
 
+def kernel_ms(calls, eager=(), cold=False) -> dict:
+    """Device ms of one call of each of ``calls`` (name -> function): CUDA-graph
+    replays of 30 calls (``ops.bench.time_ms``), L2-warm, and with ``cold``
+    also L2-cold under ``{name}_l2_cold``; the names in ``eager``, calls a
+    graph cannot capture (host reads, autograd), over EAGER_ITERS eager calls
+    between two CUDA events, after one call to warm up."""
+    out = {}
+    for name, fn in calls.items():
+        if name not in eager:
+            out[name] = time_ms(fn)
+            if cold:
+                out[name + "_l2_cold"] = time_ms(fn, cold=True)
+            continue
+        fn()
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(EAGER_ITERS):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        out[name] = start.elapsed_time(stop) / EAGER_ITERS
+    return out
+
+
 def time_flash(fa, gen) -> dict:
-    """Per dtype, per serving shape (split-head layout, unmasked): the
-    kernel's, the plain version's and scaled_dot_product_attention's time
-    (a yardstick the port never calls), L2-warm and L2-cold, beside the
-    bound; and the device kernels that the library call ran (its backend)."""
+    """Phase 3's table: per type, at each FLASH_TIMED shape (split-head,
+    unmasked), the kernel's, the plain version's and
+    scaled_dot_product_attention's ms (a yardstick the port never calls),
+    L2-warm and cold, beside the bound and the library call's kernels."""
     timings = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, shapes in FLASH_TIMED.items():
         rows = []
-        for b, h, n, dh in SERVING_SHAPES:
+        for b, h, n, dh in shapes:
             q, k, v = (split_heads(gen, b, h, n, dh, dtype) for _ in range(3))
             scale = dh ** -0.5
             calls = {
@@ -706,13 +584,13 @@ def time_flash(fa, gen) -> dict:
             }
             bound, bound_by = attention_bound_ms(q, k)
             row = {"shape": [b, h, n, dh], "bound_ms": bound, "bound_by": bound_by,
-                   "library_kernels": device_kernel_names(calls["library_ms"])}
-            for key, fn in calls.items():
-                row[key] = time_ms(fn)
-                row[key + "_l2_cold"] = time_ms(fn, cold=True)
+                   "library_kernels": device_kernel_names(calls["library_ms"]),
+                   **kernel_ms(calls, cold=True)}
             rows.append(row)
             log(f"[kernels] flash_attention {str(dtype)[6:]} {(b, h, n, dh)} split-head timing: "
                 + json.dumps(row))
+            del q, k, v, calls
+            torch.cuda.empty_cache()
         timings[dtype] = rows
     return timings
 
@@ -744,18 +622,17 @@ def golden_images(io) -> torch.Tensor:
     return torch.from_numpy(io["images"]).permute(0, 2, 3, 1).contiguous().cuda()
 
 
-def check_golden(fa):
+def check_golden():
     """The committed reference goldens through the port on the card."""
     from texocr_tpu_torch.models import greedy_decode
 
     model, io = golden_model()
     images = golden_images(io)
-    fa.flash_attention.launches = 0
-    with torch.inference_mode():
+    with counted() as n, torch.inference_mode():
         enc = model.encode(images)
-    tokens = greedy_decode(model, enc, bos_token=48, eos_token=-1, pad_token=49,
-                           max_len=io["greedy_tokens"].shape[1] - 1)
-    launches = fa.flash_attention.launches  # all float32: the float32 kernel's
+        tokens = greedy_decode(model, enc, bos_token=48, eos_token=-1, pad_token=49,
+                               max_len=io["greedy_tokens"].shape[1] - 1)
+    launches = n["flash"]  # all float32: the float32 kernel's
     enc_ok = np.allclose(enc.cpu().numpy(), io["enc_out"], rtol=1e-4, atol=1e-4)
     enc_err = float(np.abs(enc.cpu().numpy() - io["enc_out"]).max())
     tokens_ok = np.array_equal(tokens.cpu().numpy(), io["greedy_tokens"][:, 1:])
@@ -787,25 +664,24 @@ def flagship_engine(**overrides):
                   device="cuda")
 
 
-def expect_launches(fa, encodes, what) -> int:
-    """The flash launches counted since the reset: N_LAYERS per encode."""
-    launches = fa.flash_attention.launches
-    if launches != N_LAYERS * encodes:
+@contextlib.contextmanager
+def counted():
+    """Yields a dict that, when the block ends, holds the change of each
+    COUNTED telemetry counter over the block, by short name. The counters
+    are the program's own, read and never written."""
+    before, out = telemetry.counters(), {}
+    yield out
+    after = telemetry.counters()
+    out.update({k: after.get(name, 0) - before.get(name, 0) for k, name in COUNTED.items()})
+
+
+def expect_launches(n, encodes, what) -> int:
+    """``n["flash"]``, a block's flash launches (``counted``): N_LAYERS per
+    encode."""
+    if n["flash"] != N_LAYERS * encodes:
         raise AssertionError(f"{what}: expected {N_LAYERS} flash launches per encode, got "
-                             f"{launches} for {encodes} encodes")
-    return launches
-
-
-def wall_s(fn) -> float:
-    """Median host-clock time of ``fn`` over REPEATS synchronised calls."""
-    times = []
-    for _ in range(REPEATS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return float(np.median(times))
+                             f"{n['flash']} for {encodes} encodes")
+    return n["flash"]
 
 
 def to_input(batch) -> torch.Tensor:
@@ -813,149 +689,47 @@ def to_input(batch) -> torch.Tensor:
     return 1.0 - torch.from_numpy(batch).cuda().float() / 255.0
 
 
-def serve(fa, rng):
-    """The flagship model at full width, bf16, seeded random weights."""
-    from texocr_tpu_torch.config import FLAGSHIP
-    from texocr_tpu_torch.ops import decode_attention as da
-
+def serve(rng):
+    """Phase 5: the flagship model at full width, bf16, seeded random
+    weights, through TexOCR (see the module docstring)."""
     engine = flagship_engine()
     requests = [canvas(rng, 160, 1008), canvas(rng, 96, 512), canvas(rng, 32, 128)]
     batch = np.stack([canvas(rng, 160, 1008) for _ in range(BATCH)])[..., None]
-    # Warm-up at every key timed below, before the counted run: the first
-    # call of a key captures its CUDA graphs (after one eager run, which pays
-    # for cuDNN's choice of convolution algorithms).
-    t0 = time.perf_counter()
+    # The first call of a key captures its CUDA graphs (after one eager run);
+    # the counted calls replay them.
     for img in requests:
         engine(img, max_len=DECODE_STEPS)
     engine.generate_batch(batch, max_len=DECODE_STEPS)
-    torch.cuda.synchronize()
-    capture_s = time.perf_counter() - t0
-
-    fa.flash_attention.launches = 0
-    da.launches = 0
-    steps = 0  # decoded, over every request and batch below
-    request_s = []
-    for img in requests:
-        times = []
-        for _ in range(REPEATS):
-            t0 = time.perf_counter()
+    steps = 0  # decoded, over every request and the batch below
+    with counted() as n:
+        for img in requests:
             ids, latex = engine(img)
-            times.append(time.perf_counter() - t0)
             if not all(0 <= i < 1000 for i in ids) or not isinstance(latex, str):
                 raise AssertionError(f"bad request output: {ids[:10]} {latex!r}")
             steps += request_steps(engine, ids)
-        request_s.append(float(np.median(times)))
-        log(f"[serve] request {img.shape}: {len(ids)} tokens, median {request_s[-1] * 1e3:.1f} ms "
-            f"of {[round(t * 1e3, 1) for t in times]} ms, latex {latex[:40]!r}")
-    times = []
-    for _ in range(REPEATS):
-        t0 = time.perf_counter()
+            log(f"[serve] request {img.shape}: {len(ids)} tokens, latex {latex[:40]!r}")
         tokens = engine.generate_batch(batch, max_len=DECODE_STEPS)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
         steps += batch_steps(engine, tokens)
-    batch_s = float(np.median(times))
-    launches = fa.flash_attention.launches  # all bfloat16: the bfloat16 kernel's
-    decode_launches = expect_decode_launches(engine, steps, "serve")
+    decode_launches = expect_decode_launches(engine, n, steps, "serve")
     tokens = tokens.cpu().numpy()
     if tokens.shape != (BATCH, DECODE_STEPS) or tokens.min() < 0 or tokens.max() >= 1000:
         raise AssertionError(f"bad batch tokens: shape {tokens.shape}")
     for row in tokens:
         engine.postprocess(row)  # the strings decode
-    encodes = REPEATS * (len(requests) + 1)
-    n_layers = FLAGSHIP["encoder"]["num_layers"]
-    log(f"[serve] batch of {BATCH} (160, 1008): median {batch_s:.3f} s of "
-        f"{[round(t, 3) for t in times]} s, {BATCH / batch_s:.2f} img/s; "
-        f"flash launches {launches} for {encodes} encodes; decode attention launches "
-        f"{decode_launches['launches']} over {steps} decoded steps; the 4 keys' first calls "
-        f"(CUDA graph capture) {capture_s:.1f} s")
-    if launches != n_layers * encodes:
-        raise AssertionError(f"expected {n_layers} flash launches per encode, got {launches}")
-    return {"request_s": request_s, "batch_s": batch_s, "launches": launches,
-            "decode_launches": decode_launches, "first_calls_s": capture_s, "engine": engine,
-            "batch": batch}
+    encodes = len(requests) + 1
+    log(f"[serve] batch of {BATCH} (160, 1008) decoded; flash launches {n['flash']} for "
+        f"{encodes} encodes; decode attention launches {n['decode']} over {steps} decoded "
+        f"steps")
+    launches = expect_launches(n, encodes, "serve")  # all bfloat16: the bfloat16 kernel's
+    return {"launches": launches, "encodes": encodes, "decode_launches": decode_launches,
+            "engine": engine, "batch": batch}
 
 
-def device_kernels(fn, span=None) -> dict:
-    """One call of ``fn`` under torch.profiler (CUDA activity): its wall time
-    (host clock, profiled), the device time summed over its kernels (those a
-    CUDA graph replays included), their count, and the 8 kernels that take
-    the most device time. With ``span``, host events are recorded too, and
-    the result also holds the device time of the kernels run under host-side
-    events whose name ends with it, summed per event name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    # Host events only where a span needs them: they cost the profile most
-    # of its time at a decode's 100,000 kernels.
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if span else [])
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    by_name = {}
-    count = 0
-    spans = {}
-    if span is None:
-        # The raw events: prof.events() would build a Python object, and a
-        # tree, for each of a decode's 100,000 kernels.
-        for e in prof.profiler.kineto_results.events():
-            if e.device_type() == torch.autograd.DeviceType.CUDA:
-                by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() * 1e-9
-                count += 1
-    for e in prof.events() if span is not None else ():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
-            count += 1
-        elif e.name.endswith(span):
-            spans[e.name] = spans.get(e.name, 0.0) + e.device_time_total * 1e-6
-    if count == 0:
-        raise AssertionError("torch.profiler recorded no device kernels")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    result = {"profiled_wall_s": wall_s, "device_s": sum(by_name.values()), "kernels": count,
-              "top": [{"name": n[:90], "s": s} for n, s in top]}
-    if span is not None:
-        result["span_device_s"] = spans
-    return result
-
-
-def profile_serving(engine, batch) -> dict:
-    """Where a batch's serving time goes: encode, then a DECODE_STEPS-step
-    greedy decode (no early stop), each timed unprofiled on the host clock
-    (median of REPEATS, synchronised) and then profiled once."""
-    from texocr_tpu_torch.models import greedy_decode
-
-    model, cfg = engine.model, engine.model.config
-    x = to_input(batch)
-    result = {}
-    with torch.inference_mode():
-        enc = model.encode(x)
-
-        def decode():
-            greedy_decode(model, enc, bos_token=cfg.bos_token, eos_token=-1,
-                          pad_token=cfg.pad_token, max_len=DECODE_STEPS)
-
-        for name, fn in (("encode", lambda: model.encode(x)), ("decode", decode)):
-            wall = wall_s(fn)
-            prof = device_kernels(fn)
-            result[name] = {"wall_s": wall, "device_busy_share": prof["device_s"] / wall, **prof}
-    result["decode"]["steps"] = DECODE_STEPS
-    result["decode"]["wall_s_per_step"] = result["decode"]["wall_s"] / DECODE_STEPS
-    result["decode"]["kernels_per_step"] = result["decode"]["kernels"] / DECODE_STEPS
-    log(f"[profile] batch {BATCH} (160, 1008) bf16: encode {result['encode']['wall_s'] * 1e3:.2f} ms "
-        f"wall, {result['encode']['device_s'] * 1e3:.2f} ms on the device; decode "
-        f"{DECODE_STEPS} steps {result['decode']['wall_s']:.3f} s wall, "
-        f"{result['decode']['device_s']:.3f} s on the device, "
-        f"{result['decode']['kernels_per_step']:.1f} kernels per step")
-    log("[profile] " + json.dumps(result))
-    return result
-
-
-def graphs_phase(fa, engine, batch, profiled) -> dict:
+def graphs_phase(engine, batch) -> dict:
     """Phase 6b: the compiled decode (models.graphed.make_graphed_generate)
     against the eager path on the serving batch, in every mode (see the
-    module docstring). ``profiled``: phase 6's eager encode and greedy
-    decode, the eager half of greedy's pair."""
+    module docstring)."""
     from texocr_tpu_torch.models.attention import decode_chunks
     from texocr_tpu_torch.models.generate import decode_state
     from texocr_tpu_torch.models.graphed import make_graphed_generate
@@ -966,35 +740,21 @@ def graphs_phase(fa, engine, batch, profiled) -> dict:
         model = (flagship_engine(kv_quant="int8", self_kv_quant="int8").model if name == "int8"
                  else engine.model)
         mode = name if name in ("beam", "sample") else "greedy"
-        steps = -(-DECODE_STEPS // 32) * 32 if mode == "beam" else DECODE_STEPS
         gen = torch.Generator(device="cuda").manual_seed(0)
         args = dict(max_len=DECODE_STEPS, mode=mode, generator=gen, temp=0.3, beam_size=BEAM)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved()
-        t0 = time.perf_counter()
         graphed = make_graphed_generate(model, BATCH, batch.shape[1:3], DECODE_STEPS, mode,
                                         beam_size=BEAM, generator=gen, temp=0.3)
-        torch.cuda.synchronize()
-        capture_s = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        key_gb = (torch.cuda.memory_reserved() - reserved) / 1e9
 
         # Bit-equal to the eager decode, the generator in the same state.
         gen.manual_seed(1)
-        fa.flash_attention.launches = 0
-        tokens = graphed(batch)
-        launches = expect_launches(fa, 1, f"graphed {name}")
+        with counted() as n:
+            tokens = graphed(batch)
+        launches = expect_launches(n, 1, f"graphed {name}")
         with torch.inference_mode():
             cross_kv = model.decoder_cross_kv(model.encode(x))
-
-            def eager_decode():
-                state = decode_state(model, cross_kv, **args)
-                decode_chunks(state, state.run_chunk)
-                return state
-
             gen.manual_seed(1)
-            state = eager_decode()
+            state = decode_state(model, cross_kv, **args)
+            decode_chunks(state, state.run_chunk)
         same = torch.equal(tokens, state.result())
         note = f"tokens {'bit-equal to' if same else 'DIFFER FROM'} the eager path's"
         if mode == "beam":
@@ -1006,42 +766,12 @@ def graphs_phase(fa, engine, batch, profiled) -> dict:
             differ = not torch.equal(again, graphed(batch))
             same = same and differ
             note += f"; two successive calls {'differ' if differ else 'DRAW THE SAME'}"
-        del state
-        log(f"[graphs] {name}: capture {capture_s:.2f} s, {key_gb:.3f} GB reserved for the "
-            f"key; {note}; flash launches {launches} for 1 encode")
+        log(f"[graphs] {name}: {note}; flash launches {launches} for 1 encode")
         if not same:
             raise AssertionError(f"the graphed {name} decode differs from the eager one")
-
-        # Paired, in this call: eager (phase 6's for greedy) and graph.
-        if name == "greedy":
-            eager = {k: profiled["decode"][k] for k in ("wall_s", "device_s", "kernels",
-                                                         "kernels_per_step",
-                                                         "device_busy_share")}
-        else:
-            with torch.inference_mode():
-                eager = decode_profile(eager_decode, steps)
-        graph = decode_profile(graphed.decode, steps)
-        result[name] = {"capture_s": capture_s, "key_gb": key_gb, "launches": launches,
-                        "encodes": 1, "steps": steps, "eager": eager, "graph": graph}
-        log(f"[graphs] {name}, {steps} steps, eager -> graph: wall {eager['wall_s']:.3f} -> "
-            f"{graph['wall_s']:.3f} s, device {eager['device_s']:.3f} -> {graph['device_s']:.3f} "
-            f"s, kernels a step {eager['kernels_per_step']:.1f} -> "
-            f"{graph['kernels_per_step']:.1f}, busy {100 * eager['device_busy_share']:.1f}% -> "
-            f"{100 * graph['device_busy_share']:.1f}%")
-        if name == "greedy":
-            graphed.images.copy_(torch.from_numpy(batch))
-            prof = device_kernels(graphed.encode)
-            result["encode"] = {
-                "eager": {k: profiled["encode"][k] for k in ("wall_s", "device_s", "kernels")},
-                "graph": {"wall_s": wall_s(graphed.encode), "device_s": prof["device_s"],
-                          "kernels": prof["kernels"]}}
-            eager_enc, graph_enc = result["encode"]["eager"], result["encode"]["graph"]
-            log(f"[graphs] encode, eager -> graph: wall {eager_enc['wall_s'] * 1e3:.2f} -> "
-                f"{graph_enc['wall_s'] * 1e3:.2f} ms, device {eager_enc['device_s'] * 1e3:.2f} "
-                f"-> {graph_enc['device_s'] * 1e3:.2f} ms, kernels {eager_enc['kernels']} -> "
-                f"{graph_enc['kernels']}")
-        del graphed, model
-    torch.cuda.empty_cache()
+        result[name] = {"launches": launches, "encodes": 1}
+        del state, graphed, model
+        torch.cuda.empty_cache()
 
     # The float32 golden model through the graphs, from its float inputs.
     golden, io = golden_model()
@@ -1049,16 +779,14 @@ def graphs_phase(fa, engine, batch, profiled) -> dict:
     graphed = make_graphed_generate(golden, want.shape[0], io["images"].shape[2:],
                                     want.shape[1], "greedy", float_input=True)
     graphed.images.copy_(golden_images(io))
-    fa.flash_attention.launches = 0
-    graphed.encode()
-    graphed.decode()
+    with counted() as n:
+        graphed.encode()
+        graphed.decode()
     exact = np.array_equal(graphed.state.result().cpu().numpy(), want)
     log(f"[graphs] golden float32 model through the graphs: greedy tokens "
-        f"{'exact' if exact else 'DIFFER'}; flash launches {fa.flash_attention.launches} "
-        f"(2 layers) for 1 encode")
-    if not (exact and fa.flash_attention.launches == 2):
+        f"{'exact' if exact else 'DIFFER'}; flash launches {n['flash']} (2 layers) for 1 encode")
+    if not (exact and n["flash"] == 2):
         raise AssertionError("the golden tokens differ through the graphs")
-    log("[graphs] " + json.dumps(result))
     return result
 
 
@@ -1094,23 +822,6 @@ def encode_paths_err(rng, overrides) -> float:
     if not torch.isfinite(outs[0]).all():
         raise AssertionError("non-finite float32 encode on the kernel path")
     return (outs[0] - outs[1]).abs().max().item()
-
-
-def event_ms(fn, iters=5) -> float:
-    """Device time of one call of ``fn`` between two CUDA events over
-    ``iters`` calls, after one call to warm up: for calls long enough that
-    the host's launch cost does not count (autograd cannot be graph-captured
-    here)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
 
 
 def train_tokens(rng, n) -> list:
@@ -1162,7 +873,7 @@ def train_config(save_dir) -> dict:
     return config
 
 
-def check_train_grads(fa, rng) -> dict:
+def check_train_grads(rng) -> dict:
     """One loss and backward on the same GRAD_IMAGES full canvases through
     the flagship from the same weights, in float32 and in bfloat16, each
     with flash on (FlashAttentionFunction: the kernel forward; the backward
@@ -1189,15 +900,14 @@ def check_train_grads(fa, rng) -> dict:
         for use_flash in (True, False):
             cfg = ModelConfig.from_dict(dict(FLAGSHIP, dtype=dtype, use_flash_attention=use_flash))
             model = OCRModel(cfg, device="cuda", seed=0)
-            fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
-            logits, shifted = model(images, labels)
-            sequence_ce_loss(logits, shifted, pad_token=999).backward()
+            with counted() as n:
+                logits, shifted = model(images, labels)
+                sequence_ce_loss(logits, shifted, pad_token=999).backward()
             # The backward kernel takes the bfloat16 calls; float32 keeps the math path's VJP.
             backward = N_LAYERS if use_flash and dtype == "bfloat16" else 0
-            if (fa.flash_attention.launches != (N_LAYERS if use_flash else 0)
-                    or fa.flash_attention_backward.launches != backward):
-                raise AssertionError(f"{dtype} flash={use_flash}: {fa.flash_attention.launches} "
-                                     f"launches, {fa.flash_attention_backward.launches} backward")
+            if n["flash"] != (N_LAYERS if use_flash else 0) or n["backward"] != backward:
+                raise AssertionError(f"{dtype} flash={use_flash}: {n['flash']} launches, "
+                                     f"{n['backward']} backward")
             grads[dtype, use_flash] = {k: p.grad.double()
                                        for k, p in model.encoder.named_parameters()}
             del model, logits
@@ -1232,84 +942,19 @@ def check_train_grads(fa, rng) -> dict:
     return {"float32": f32[0], "bfloat16": bf16[0], "bfloat16_tol": bf16[2]}
 
 
-def time_train_attention(fa, gen) -> dict:
-    """The bf16 kernel at TRAIN_SHAPE (split-head, L2-warm, CUDA-graph
-    replays) beside its bound, the plain version, scaled_dot_product_attention,
-    and the backward kernel that FlashAttentionFunction runs there beside the
-    math path's VJP that it ran before."""
-    b, h, n, dh = TRAIN_SHAPE
-    q, k, v = (split_heads(gen, b, h, n, dh, torch.bfloat16) for _ in range(3))
-    scale = dh ** -0.5
-    err, tol, note = hold_bf16(fa, fa.flash_attention(q, k, v, scale=scale),
-                               fa.flash_attention_plain(q, k, v, scale=scale), q, k, v, scale)
-    log(f"[train] flash_attention bf16 {TRAIN_SHAPE} split-head, kernel vs plain: {note} "
-        f"{'ok' if err <= tol else 'FAIL'}")
-    if not err <= tol:
-        raise AssertionError("flash attention kernel disagrees with its plain version")
-    bound, bound_by = attention_bound_ms(q, k)
-    row = {"shape": list(TRAIN_SHAPE), "max_abs_err": err, "bound_ms": bound, "bound_by": bound_by,
-           "ms": time_ms(lambda: fa.flash_attention(q, k, v, scale=scale)),
-           "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, scale=scale), iters=5),
-           "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-               q, k, v, scale=scale))}
-    grad_out = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
-    lse = torch.empty(b, h, fa.lse_rows(n), device="cuda")
-    out = fa.flash_attention(q, k, v, scale=scale, lse=lse)
-    row["backward_ms"] = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, grad_out,
-                                                                     scale=scale))
-    row["math_backward_ms"] = event_ms(lambda: fa.flash_attention_backward_plain(
-        q, k, v, grad_out, scale=scale))
-    log(f"[train] flash_attention bf16 {TRAIN_SHAPE} split-head: " + json.dumps(row))
-    return row
-
-
-def time_rank_shapes(fa, gen) -> list:
-    """Phase 3 at phase 16's per-rank training shapes (bfloat16, split-head,
-    L2-warm, CUDA-graph replays): the kernel against its plain version, and
-    its time beside the bound, the plain version and
-    scaled_dot_product_attention."""
-    rows = []
-    for b, h, n, dtype in RANK_SHAPES:
-        if dtype != torch.bfloat16:
-            continue
-        q, k, v = (split_heads(gen, b, h, n, 64, dtype) for _ in range(3))
-        scale = 64 ** -0.5
-        err, tol, note = hold_bf16(fa, fa.flash_attention(q, k, v, scale=scale),
-                                   fa.flash_attention_plain(q, k, v, scale=scale), q, k, v,
-                                   scale)
-        log(f"[kernels] flash_attention bf16 {(b, h, n, 64)} split-head (a phase 16 rank's "
-            f"shape), kernel vs plain: {note} {'ok' if err <= tol else 'FAIL'}")
-        if not err <= tol:
-            raise AssertionError("flash attention kernel disagrees with its plain version")
-        bound, bound_by = attention_bound_ms(q, k)
-        row = {"shape": [b, h, n, 64], "max_abs_err": err, "bound_ms": bound,
-               "bound_by": bound_by,
-               "ms": time_ms(lambda: fa.flash_attention(q, k, v, scale=scale)),
-               "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, scale=scale),
-                                   iters=5),
-               "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                   q, k, v, scale=scale))}
-        log(f"[kernels] flash_attention bf16 {(b, h, n, 64)} split-head timing: "
-            + json.dumps(row))
-        rows.append(row)
-    return rows
-
-
 def decode_attention_phase() -> dict:
     """Phase 3b: the decode-attention kernel (csrc/decode_attention.cu). Its
     build (ptxas registers and spills per instantiation); each DECODE_CASES
     call against its plain version on the card, on DA_SEEDS seeds, and its
-    worst reading over them; the DA_TIMED calls timed (CUDA-graph replays,
-    L2-warm) beside their bound (bytes at 3.35 TB/s), the plain version and
+    worst reading over them; the DA_TIMED calls timed (``kernel_ms``) beside
+    their bound (bytes at 3.35 TB/s), the plain version and
     scaled_dot_product_attention where one computes the same (the
     compute-type caches). The main path's launches are counted in serve()
     and int8_phase()."""
     from texocr_tpu_torch.ops import bench, build
     from texocr_tpu_torch.ops import decode_attention as da
 
-    start = time.perf_counter()
     _, build_log = build.build(da.SOURCE)
-    log(f"[decode attention] {da.SOURCE} built in {time.perf_counter() - start:.1f} s")
     for line in build_log.splitlines():
         if any(word in line for word in ("entry function", "registers", "spill", "warning")):
             log(f"[decode attention]   {line.strip()}")
@@ -1320,11 +965,11 @@ def decode_attention_phase() -> dict:
         for seed in range(DA_SEEDS):
             gen = torch.Generator(device="cuda").manual_seed(seed)
             q, call, kernel, plain, keys = bench.decode_case(gen, kind, args, scale)
-            before = da.launches
-            got, want = kernel(), plain()
+            with counted() as n:
+                got, want = kernel(), plain()
             torch.cuda.synchronize()
-            if da.launches != before + 1:
-                raise AssertionError(f"decode attention {name}: {da.launches - before} launches")
+            if n["decode"] != 1:
+                raise AssertionError(f"decode attention {name}: {n['decode']} launches")
             gaps = bench.decode_gaps(got, want)
             if not gaps.pop("ok"):
                 raise AssertionError(f"decode attention kernel disagrees with its plain version: "
@@ -1334,12 +979,12 @@ def decode_attention_phase() -> dict:
         log(f"[decode attention] {name}, kernel vs plain, worst of {DA_SEEDS} seeds: "
             f"{json.dumps(worst)} ok")
         if name in DA_TIMED:
-            row.update(shape=list(q.shape), keys=call["n"], int8_keys=call["n8"],
-                       bound_ms=bench.decode_attention_bound_ms(q, call), ms=time_ms(kernel),
-                       plain_ms=time_ms(plain, iters=5))
+            calls = {"ms": kernel, "plain_ms": plain}
             if keys is not None:
                 sdpa = torch.nn.functional.scaled_dot_product_attention
-                row["library_ms"] = time_ms(lambda: sdpa(q, *keys, scale=scale))
+                calls["library_ms"] = lambda: sdpa(q, *keys, scale=scale)
+            row.update(shape=list(q.shape), keys=call["n"], int8_keys=call["n8"],
+                       bound_ms=bench.decode_attention_bound_ms(q, call), **kernel_ms(calls))
             row["bound_share"] = row["bound_ms"] / row["ms"]
             log(f"[decode attention] {name} timing: " + json.dumps(row))
         rows[name] = row
@@ -1361,30 +1006,15 @@ def moe_loop(x, ids, w, wg, wu, wd) -> torch.Tensor:
     return out
 
 
-def moe_bound_ms(tokens, touched) -> tuple:
-    """(least ms, "bytes" or "operations") of one layer's two launches:
-    tokens in, the touched experts' weights, the (token, choice) rows'
-    intermediate out and in, their float32 outputs and weights, at 3.35 TB/s,
-    against 2 x rows x 3 x D x I operations at 989 TFLOP/s."""
-    _, inter, hidden, k = MOE_WIDTHS
-    rows = tokens * k
-    moved = (tokens * hidden * 2 + touched * 3 * inter * hidden * 2 + 2 * rows * inter * 2
-             + rows * hidden * 4 + rows * 4)
-    t_bytes, t_ops = moved / 3.35e12 * 1e3, 2.0 * rows * 3 * hidden * inter / 989e12 * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def moe_graph_check() -> dict:
     """A 3-layer mla_moe model at Kimi-VL-A3B's widths, drawn on the card:
     its 8-chunk graphs' tokens against the eager decode's (bit-equal), the
-    launches a call adds to ``moe_experts.launches`` (2 an expert layer for
-    the prefill and every step), and the rows it adds to ``moe.expert_rows``."""
-    from texocr_tpu_torch import telemetry
+    launches a replayed call counts (2 an expert layer for the prefill and
+    every step), and the rows it adds to ``moe.expert_rows``."""
     from texocr_tpu_torch.models import generate
     from texocr_tpu_torch.models.graphed import make_graphed_generate
     from texocr_tpu_torch.models.moe import EXPERT_ROWS
     from texocr_tpu_torch.models.ocr_model import create_model
-    from texocr_tpu_torch.ops import moe_experts
 
     cfg = json.load(open(os.path.join(REPO, "portbench", "configs", "kimi-vl-a3b.json")))["model"]
     cfg = dict(cfg, decoder=dict(cfg["decoder"], num_hidden_layers=MOE_GRAPH_LAYERS))
@@ -1392,27 +1022,23 @@ def moe_graph_check() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(31)
     u8 = torch.randint(0, 256, (MOE_GRAPH_BATCH, 160, 1008, 1), dtype=torch.uint8,
                        device="cuda", generator=gen)
-    start = time.perf_counter()
     engine = make_graphed_generate(model, MOE_GRAPH_BATCH, (160, 1008), MOE_GRAPH_STEPS)
-    capture_s = time.perf_counter() - start
     rows = telemetry.device_counters()[EXPERT_ROWS]
-    moe_experts.launches = 0
-    graphed = engine(u8)
+    with counted() as n:
+        graphed = engine(u8)
     torch.cuda.synchronize()
-    launches = moe_experts.launches
     routed = int((telemetry.device_counters()[EXPERT_ROWS] - rows).sum())
     with torch.inference_mode():
         eager = generate(model, 1.0 - u8.float() / 255.0, max_len=MOE_GRAPH_STEPS)
     moe_layers = MOE_GRAPH_LAYERS - cfg["decoder"]["first_k_dense_replace"]
     want = 2 * moe_layers * (1 + MOE_GRAPH_STEPS)
     want_rows = MOE_GRAPH_BATCH * (160 + MOE_GRAPH_STEPS) * MOE_WIDTHS[3] * moe_layers
-    if launches != want or routed != want_rows:
-        raise AssertionError(f"moe graphs: {launches} launches and {routed} routed rows a call, "
-                             f"expected {want} and {want_rows}")
+    if n["moe"] != want or routed != want_rows:
+        raise AssertionError(f"moe graphs: {n['moe']} launches and {routed} routed rows a "
+                             f"call, expected {want} and {want_rows}")
     if not torch.equal(graphed, eager):
         raise AssertionError("moe graphs: graphed tokens differ from the eager decode's")
-    out = {"launches_per_call": launches, "routed_rows": routed, "chunks": engine.state.n_chunks,
-           "capture_s": capture_s, "call_s": wall_s(lambda: engine(u8).cpu())}
+    out = {"launches_per_call": n["moe"], "routed_rows": routed, "chunks": engine.state.n_chunks}
     del engine, model
     torch.cuda.empty_cache()
     return out
@@ -1431,24 +1057,21 @@ def moe_main_path() -> dict:
     """kimivl.batch's path: ``TexOCR`` with the kimi-vl-a3b configuration
     whole, its state dict (drawn on the card, EOS's head row zeroed) taken in
     place, ``generate_batch`` at the cell's shape. The first call captures;
-    before each of ``MOE_MAIN_CALLS`` replayed calls ``moe_experts.launches``
-    is zeroed, and after it must read 2 x expert layers x (1 + steps): the
-    prefill and every step, through the graphs' replay counts."""
+    the replayed call after it must count 2 x expert layers x (1 + steps)
+    launches: the prefill and every step, through the graphs' replay
+    counts."""
     from texocr_tpu_torch.models.ocr_model import create_model
-    from texocr_tpu_torch.ops import moe_experts
     from texocr_tpu_torch.serving.wrapper import TexOCR
 
     cfg = json.load(open(os.path.join(REPO, "portbench", "configs", "kimi-vl-a3b.json")))["model"]
     dec = cfg["decoder"]
     moe_layers = dec["num_hidden_layers"] - dec["first_k_dense_replace"]
     head = "language_model.lm_head.weight"
-    torch.cuda.reset_peak_memory_stats()
     params = create_model(cfg, device="cuda", seed=11).state_dict()
     params[head][cfg["eos_token"]].zero_()
     engine = TexOCR(cfg, device="cuda", state_dict=params)
     if engine.model.language_model.lm_head.weight.data_ptr() != params[head].data_ptr():
         raise AssertionError("moe main path: the engine copied the state dict")
-    weights_gb = torch.cuda.memory_allocated() / 1e9
     del params
     gen = torch.Generator(device="cuda").manual_seed(41)
     u8 = torch.randint(0, 256, (MOE_MAIN_BATCH, 160, 1008, 1), dtype=torch.uint8,
@@ -1458,39 +1081,31 @@ def moe_main_path() -> dict:
     prefix = -(-h // mh) * -(-w // mw)  # 160 image tokens
     want_rows = (MOE_MAIN_BATCH * (prefix + MOE_MAIN_STEPS) * dec["num_experts_per_tok"]
                  * moe_layers)
-    start = time.perf_counter()
-    engine.generate_batch(u8, max_len=MOE_MAIN_STEPS).cpu()
-    capture_s = time.perf_counter() - start
-    calls = []
-    for _ in range(MOE_MAIN_CALLS):
-        rows = routed_rows_now()
-        moe_experts.launches = 0
-        start = time.perf_counter()
+    engine.generate_batch(u8, max_len=MOE_MAIN_STEPS).cpu()  # the key's capture
+    rows = routed_rows_now()
+    with counted() as n:
         tokens = engine.generate_batch(u8, max_len=MOE_MAIN_STEPS).cpu()
-        call_s = time.perf_counter() - start
-        launches, routed = moe_experts.launches, routed_rows_now() - rows
-        if launches != want or routed != want_rows:
-            raise AssertionError(f"moe main path: {launches} launches and {routed} routed rows "
-                                 f"a call, expected {want} and {want_rows}")
-        if bool((tokens == cfg["eos_token"]).any()):
-            raise AssertionError("moe main path: a row served EOS with its logit pinned at 0")
-        calls.append({"launches": launches, "routed_rows": routed, "call_s": call_s,
-                      "images_per_s": MOE_MAIN_BATCH / call_s})
-    out = {"shape": [MOE_MAIN_BATCH, 160, 1008, MOE_MAIN_STEPS], "capture_s": capture_s,
-           "weights_gb": weights_gb, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "calls": calls}
+    routed = routed_rows_now() - rows
+    if n["moe"] != want or routed != want_rows:
+        raise AssertionError(f"moe main path: {n['moe']} launches and {routed} routed rows "
+                             f"a call, expected {want} and {want_rows}")
+    if bool((tokens == cfg["eos_token"]).any()):
+        raise AssertionError("moe main path: a row served EOS with its logit pinned at 0")
     del engine
     torch.cuda.empty_cache()
-    return out
+    return {"shape": [MOE_MAIN_BATCH, 160, 1008, MOE_MAIN_STEPS], "launches": n["moe"],
+            "routed_rows": routed}
 
 
 def moe_experts_phase() -> dict:
     """Phase 3c: the routed-expert kernels (``ops/moe_experts.py``, Triton)
     at Kimi-VL-A3B's widths, decode's and prefill's row counts: each against
     the expert loop with the kernels' roundings (``MOE_TOL``), the kernels'
-    time (their two launches alone, CUDA-graph replays) beside their bound
-    and the plain version's time where it fits; then ``moe_graph_check``."""
+    time (their two launches alone, and ``routed`` whole) beside their bound,
+    the expert loop's and at decode the plain version's; then
+    ``moe_graph_check`` and ``moe_main_path``."""
     from texocr_tpu_torch.ops import moe_experts
+    from texocr_tpu_torch.ops.bench import moe_bound_ms
 
     n_experts, inter, hidden, k = MOE_WIDTHS
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1503,26 +1118,23 @@ def moe_experts_phase() -> dict:
         scores = torch.randn(tokens, n_experts, generator=gen, device="cuda")
         ids = torch.topk(scores, k, dim=-1).indices
         w = torch.softmax(scores.gather(1, ids), -1) * 2.446
-        start = time.perf_counter()
         got, counts = moe_experts.routed(x, ids, w, *weights)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - start
         want = moe_loop(x, ids, w, *weights)
         gap = float((got - want).abs().max() / want.abs().max())
         if gap > MOE_TOL:
             raise AssertionError(f"moe experts {name}: kernels vs loop {gap:.3g} > {MOE_TOL}")
         tile = moe_experts.tiles(tokens * k, n_experts)
         aligned = moe_experts.align(ids, n_experts, tile["gate_up"][0])
-        kernels_ms = time_ms(lambda: moe_experts.launch(x, w, *weights, aligned, tile))
-        bound_ms, bound_by = moe_bound_ms(tokens, int((counts > 0).sum()))
-        row = {"tokens": tokens, "rows": tokens * k, "gap": gap, "first_call_s": first_s,
-               "ms": kernels_ms, "routed_ms": time_ms(
-                   lambda: moe_experts.routed(x, ids, w, *weights)),
-               "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / kernels_ms,
-               "loop_ms": event_ms(lambda: moe_loop(x, ids, w, *weights), iters=2)}
+        calls = {"ms": lambda: moe_experts.launch(x, w, *weights, aligned, tile),
+                 "routed_ms": lambda: moe_experts.routed(x, ids, w, *weights),
+                 "loop_ms": lambda: moe_loop(x, ids, w, *weights)}
         if name == "decode":
-            row["plain_ms"] = event_ms(lambda: moe_experts.routed_plain(
-                x, ids, w, *weights, block=tile["down"][0]), iters=3)
+            calls["plain_ms"] = lambda: moe_experts.routed_plain(x, ids, w, *weights,
+                                                                 block=tile["down"][0])
+        bound_ms, bound_by = moe_bound_ms(tokens, int((counts > 0).sum()), inter, hidden, k)
+        row = {"tokens": tokens, "rows": tokens * k, "gap": gap, "bound_ms": bound_ms,
+               "bound_by": bound_by, **kernel_ms(calls, eager=("loop_ms", "plain_ms"))}
+        row["bound_share"] = bound_ms / row["ms"]
         log(f"[moe experts] {name}: " + json.dumps(row))
         rows[name] = row
     rows["graphs"] = moe_graph_check()
@@ -1532,16 +1144,14 @@ def moe_experts_phase() -> dict:
     return rows
 
 
-def expect_decode_launches(engine, steps, what) -> dict:
-    """The decode attention launches counted since the reset: 2 a decoder
-    layer a decoded step (self and cross attention)."""
-    from texocr_tpu_torch.ops import decode_attention as da
-
+def expect_decode_launches(engine, n, steps, what) -> dict:
+    """``n["decode"]``, a block's decode attention launches (``counted``): 2
+    a decoder layer a decoded step (self and cross attention)."""
     expected = 2 * engine.model.config.decoder.num_layers * steps
-    if da.launches != expected:
+    if n["decode"] != expected:
         raise AssertionError(f"{what}: expected {expected} decode attention launches over "
-                             f"{steps} decoded steps, got {da.launches}")
-    return {"launches": da.launches, "steps": steps}
+                             f"{steps} decoded steps, got {n['decode']}")
+    return {"launches": n["decode"], "steps": steps}
 
 
 def batch_steps(engine, tokens) -> int:
@@ -1597,11 +1207,11 @@ def hold_backward(fa, q, k, v, grad, causal) -> dict:
 
     scale = q.shape[-1] ** -0.5
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    before = fa.flash_attention_backward.launches
-    out = fa.FlashAttentionFunction.apply(qg, kg, vg, scale, causal)
-    got = torch.autograd.grad(out, (qg, kg, vg), grad)
+    with counted() as n:
+        out = fa.FlashAttentionFunction.apply(qg, kg, vg, scale, causal)
+        got = torch.autograd.grad(out, (qg, kg, vg), grad)
     torch.cuda.synchronize()
-    launches = fa.flash_attention_backward.launches - before
+    launches = n["backward"]
     plain = fa.flash_attention_backward_plain(q, k, v, grad, scale=scale, causal=causal)
     ref = fa.flash_attention_backward_plain(q.float(), k.float(), v.float(), grad.float(),
                                             scale=scale, causal=causal)
@@ -1669,43 +1279,41 @@ def flash_backward_phase(fa, gen) -> dict:
         def library():
             torch.autograd.grad(lib_out, (ql, kl, vl), grad, retain_graph=True)
 
+        calls = {"ms": lambda: fa.flash_attention_backward(q, k, v, out, lse, grad,
+                                                           scale=scale),
+                 "plain_ms": lambda: fa.flash_attention_backward_plain(q, k, v, grad,
+                                                                       scale=scale),
+                 "library_ms": library,
+                 "forward_ms": lambda: fa.flash_attention(q, k, v, scale=scale),
+                 "forward_lse_ms": lambda: fa.flash_attention(q, k, v, scale=scale, lse=lse)}
         bound, bound_by = attention_backward_bound_ms(q, k)
         row = {"shape": [b, h, n, 64], "bound_ms": bound, "bound_by": bound_by,
-               "ms": time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, grad,
-                                                                  scale=scale)),
-               "plain_ms": event_ms(lambda: fa.flash_attention_backward_plain(
-                   q, k, v, grad, scale=scale), iters=3),
-               "library_ms": event_ms(library),
                "library_kernels": device_kernel_names(library),
-               "forward_ms": time_ms(lambda: fa.flash_attention(q, k, v, scale=scale)),
-               "forward_lse_ms": time_ms(lambda: fa.flash_attention(q, k, v, scale=scale,
-                                                                    lse=lse))}
+               **kernel_ms(calls, eager=("plain_ms", "library_ms"))}
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         log(f"[backward] timing {(b, h, n, 64)} split-head: " + json.dumps(row))
         rows.append(row)
-        del q, k, v, grad, out, lib_out, ql, kl, vl
+        del q, k, v, grad, out, lib_out, ql, kl, vl, calls
         torch.cuda.empty_cache()
     return {"worst": worst, "timings": rows}
 
 
-def train(fa, rng, data_dir=None) -> dict:
+def train(rng, data_dir=None) -> dict:
     """Phase 8: the training path on the card (see the module docstring).
-    ``data_dir``: where to write the dataset and leave it (phase 16 trains
-    on it again); by default a temporary directory."""
+    ``data_dir``: where to write the dataset and leave it (phases 16 and 18
+    train on it again); by default a temporary directory."""
     from texocr_tpu_torch.checkpoint.io import latest_checkpoint, load_checkpoint
-    from texocr_tpu_torch.data.dataset import create_dataloader, load_datasets, prefetch
+    from texocr_tpu_torch.data.dataset import create_dataloader, load_datasets
     from texocr_tpu_torch.models import OCRModel
-    from texocr_tpu_torch.telemetry import step_timer
     from texocr_tpu_torch.training.loop import train_model
     from texocr_tpu_torch.training.optimizers import get_optimizer
     from texocr_tpu_torch.training.train_step import (
         create_train_state,
-        make_eval_step,
         make_train_step,
         put_batch,
     )
 
-    grad_errors = check_train_grads(fa, rng)
+    grad_errors = check_train_grads(rng)
 
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = data_dir or tmp
@@ -1714,22 +1322,17 @@ def train(fa, rng, data_dir=None) -> dict:
         train_set.augment = True  # as the training CLI sets it
         config = train_config(os.path.join(data_dir, "checkpoints"))
         metrics = os.path.join(tmp, "metrics.jsonl")
-        torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
-        t0 = time.perf_counter()
-        model, state, history = train_model(train_set, val_set, config, metrics_path=metrics,
-                                            device="cuda")
-        run_s = time.perf_counter() - t0
-        launches = fa.flash_attention.launches
-        backward_launches = fa.flash_attention_backward.launches
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with counted() as n:
+            model, state, history = train_model(train_set, val_set, config,
+                                                metrics_path=metrics, device="cuda")
+        launches, backward_launches = n["flash"], n["backward"]
         with open(metrics) as f:
             records = [json.loads(line) for line in f]
         train_steps = sum(r["steps"] for r in records if r["event"] == "train_epoch")
         eval_steps = TRAIN_EPOCHS * len(create_dataloader(val_set, config))
         log(f"[train] train_model: {TRAIN_EPOCHS} epochs, {train_steps} train and {eval_steps} "
-            f"eval steps in {run_s:.1f} s; epoch losses {history}; flash launches {launches}, "
-            f"backward {backward_launches}; peak memory {peak_gb:.2f} GB")
+            f"eval steps; epoch losses {history}; flash launches {launches}, backward "
+            f"{backward_launches}")
         if not (len(history) == TRAIN_EPOCHS and np.isfinite(history).all()):
             raise AssertionError(f"non-finite training loss: {history}")
         if not history[1] < history[0]:
@@ -1761,71 +1364,13 @@ def train(fa, rng, data_dir=None) -> dict:
             f"without the save {kept} (rtol {RESUME_RTOL:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("resumed training differs from uninterrupted training")
-
-        # The host loader alone (augmentation and collation, no device), one pass.
-        t0 = time.perf_counter()
-        n_loaded = sum(1 for _ in create_dataloader(train_set, config, seed_offset=TRAIN_EPOCHS))
-        loader_s = (time.perf_counter() - t0) / n_loaded
-
-        # Step time: further epochs, each step synchronised (data waits excluded).
-        by_bucket = {}
-        loader = create_dataloader(train_set, config, seed_offset=TRAIN_EPOCHS + 1)
-        for _ in range(TIMED_EPOCHS):
-            for host_images, host_labels in prefetch(iter(loader)):
-                images, labels = put_batch(host_images, host_labels, "cuda")
-                torch.cuda.synchronize()
-                fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
-                timed = {}
-                with step_timer(timed, sync=images):
-                    loss = train_step(state, images, labels)["loss"]
-                if (fa.flash_attention.launches != 4 or fa.flash_attention_backward.launches != 4
-                        or not torch.isfinite(loss)):
-                    raise AssertionError(f"train step: {fa.flash_attention.launches} launches, "
-                                         f"{fa.flash_attention_backward.launches} backward, "
-                                         f"loss {loss.item()}")
-                by_bucket.setdefault(tuple(images.shape[1:3]), []).append(timed["seconds"])
-        full = tuple(TRAIN_BUCKETS[0][0])
-        step_s = {f"{h}x{w}": {"median": float(np.median(t)), "min": min(t), "max": max(t),
-                           "steps": len(t)} for (h, w), t in by_bucket.items()}
-        eval_step = make_eval_step(mask_pad=True)
-        host_images, host_labels = next(iter(create_dataloader(val_set, config)))
-        val_images, val_labels = put_batch(host_images, host_labels, "cuda")
-        fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
-        eval_step(state.model, val_images, val_labels).item()
-        if fa.flash_attention.launches != 4 or fa.flash_attention_backward.launches != 0:
-            raise AssertionError(f"eval step: {fa.flash_attention.launches} flash launches, "
-                                 f"{fa.flash_attention_backward.launches} backward")
-
-        # One profiled full-canvas step.
-        full_batch = next(b for b in create_dataloader(train_set, config)
-                          if b[0].shape[1:3] == full)
-        images, labels = put_batch(*full_batch, "cuda")
-        prof = device_kernels(lambda: train_step(state, images, labels),
-                              span="FlashAttentionFunctionBackward")
-        backward_s = max(prof["span_device_s"].values(), default=0.0)  # the four layers' sum
-        median_full = float(np.median(by_bucket[full]))
-        result = {
-            "train_model_s": run_s, "epoch_losses": history, "epochs": records,
-            "launches": launches, "launches_per_step": launches / (train_steps + eval_steps),
+    del model, state
+    torch.cuda.empty_cache()
+    return {"epoch_losses": history, "launches": launches,
+            "launches_per_step": launches / (train_steps + eval_steps),
             "backward_launches": backward_launches,
             "backward_launches_per_train_step": backward_launches / train_steps,
-            "peak_memory_gb": peak_gb, "grad_rel_l2": grad_errors,
-            "step_s": step_s, "images_per_s_full": TRAIN_BATCH / median_full,
-            "loader_s_per_batch": loader_s,
-            "profile": {**prof,
-                        "device_busy_share": prof["device_s"] / prof["profiled_wall_s"],
-                        "attention_backward_share": backward_s / prof["device_s"]},
-            "resume_losses": [resumed, kept], "data_dir": data_dir, "config": config,
-        }
-    log(f"[train] step (synchronised, over {TIMED_EPOCHS} epochs) {step_s} s, "
-        f"{TRAIN_BATCH / median_full:.1f} images/s at (160, 1008); host loader alone "
-        f"{loader_s:.3f} s per batch; peak memory {peak_gb:.2f} GB; profiled full step "
-        f"{prof['device_s'] * 1e3:.1f} ms on the device in {prof['profiled_wall_s'] * 1e3:.1f} "
-        f"ms wall, {100 * result['profile']['device_busy_share']:.1f}% busy, attention's "
-        f"backward {100 * result['profile']['attention_backward_share']:.1f}%")
-    log("[train] " + json.dumps({k: v for k, v in result.items()
-                                 if k not in ("data_dir", "config")}))
-    return result
+            "grad_rel_l2": grad_errors, "data_dir": data_dir, "config": config}
 
 
 def gray_edges(img) -> np.ndarray:
@@ -1837,16 +1382,7 @@ def gray_edges(img) -> np.ndarray:
     return np.minimum(np.minimum(img, right), below)
 
 
-def mem_available_gb() -> float:
-    """The host's MemAvailable, in GB."""
-    with open("/proc/meminfo") as f:
-        for line in f:
-            if line.startswith("MemAvailable:"):
-                return int(line.split()[1]) * 1024 / 1e9
-    raise AssertionError("no MemAvailable in /proc/meminfo")
-
-
-def device_data_phase(fa, rng) -> dict:
+def device_data_phase(rng) -> dict:
     """Phase 8b: device-resident training (see the module docstring)."""
     from texocr_tpu_torch.checkpoint.io import latest_checkpoint
     from texocr_tpu_torch.data.dataset import ImageDataset, load_datasets
@@ -1858,41 +1394,34 @@ def device_data_phase(fa, rng) -> dict:
     )
     from texocr_tpu_torch.training.loop import train_model
 
-    (h, w), full_batches = DD_BUCKETS[0]
+    h, w = DD_BUCKETS[0][0]
     tag = h * 4096 + w  # the loop's bucket tag
     torch.cuda.empty_cache()
-    result = {}
     with tempfile.TemporaryDirectory() as tmp:
         write_train_data(tmp, rng, DD_BUCKETS)
         train_set, val_set, _ = load_datasets(tmp)
         config = dict(train_config(os.path.join(tmp, "resident")), device_data=True,
                       device_data_augment=True, device_data_steps_per_call=DD_STEPS_PER_CALL)
         metrics = os.path.join(tmp, "resident.jsonl")
-        torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
-        t0 = time.perf_counter()
-        _, state, history = train_model(train_set, val_set, config, metrics_path=metrics,
-                                        device="cuda")
-        run_s = time.perf_counter() - t0
-        launches = fa.flash_attention.launches
-        backward_launches = fa.flash_attention_backward.launches
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with counted() as n:
+            _, state, history = train_model(train_set, val_set, config, metrics_path=metrics,
+                                            device="cuda")
+        launches, backward_launches = n["flash"], n["backward"]
         with open(metrics) as f:
             records = [json.loads(line) for line in f]
-        epochs = [r for r in records if r["event"] == "train_epoch"]
-        train_steps = sum(r["steps"] for r in epochs)
+        train_steps = sum(r["steps"] for r in records if r["event"] == "train_epoch")
         eval_steps = sum(1 for r in records if r["event"] == "val")  # one val batch each
         log(f"[device data] train_model, device_data on, augmentation on the device: "
             f"{TRAIN_EPOCHS} epochs, {train_steps} train and {eval_steps // TRAIN_EPOCHS} eval "
-            f"steps in {run_s:.1f} s; epoch s {[r['seconds'] for r in epochs]}; epoch losses "
-            f"{history}; flash launches {launches}, backward {backward_launches}; peak memory "
-            f"{peak_gb:.2f} GB")
+            f"steps; epoch losses {history}; flash launches {launches}, backward "
+            f"{backward_launches}")
         if not (len(history) == TRAIN_EPOCHS and np.isfinite(history).all()):
             raise AssertionError(f"non-finite device-resident training loss: {history}")
         if not history[1] < history[0]:
             raise AssertionError(f"the device-resident loss did not fall: {history}")
-        if train_steps != TRAIN_EPOCHS * sum(n for _, n in DD_BUCKETS):
-            raise AssertionError(f"expected {sum(n for _, n in DD_BUCKETS)} steps an epoch")
+        per_epoch = sum(batches for _, batches in DD_BUCKETS)
+        if train_steps != TRAIN_EPOCHS * per_epoch:
+            raise AssertionError(f"expected {per_epoch} steps an epoch")
         if launches != N_LAYERS * (train_steps + eval_steps):
             raise AssertionError(f"expected {N_LAYERS} flash launches per step, got {launches} for "
                                  f"{train_steps} train and {eval_steps} eval steps")
@@ -1912,51 +1441,7 @@ def device_data_phase(fa, rng) -> dict:
             raise AssertionError("a device-resident checkpoint does not resume")
         del resumed, trained
 
-        # The host loader on the same data, host augmentation on as the CLI sets it.
-        train_set.augment = True
-        host_metrics = os.path.join(tmp, "host.jsonl")
-        train_model(train_set, val_set, dict(config, device_data=False,
-                                             save_dir=os.path.join(tmp, "host")),
-                    metrics_path=host_metrics, verbose=False, device="cuda")
-        with open(host_metrics) as f:
-            host_epochs = [json.loads(line) for line in f]
-        host_epochs = [r for r in host_epochs if r["event"] == "train_epoch"]
-        train_set.augment = False
-        torch.cuda.empty_cache()
-
-        # Synchronised steps and a profiled call on the full-canvas bucket.
-        data = DeviceResidentData.from_dataset(train_set, seq_pad_multiple=32, device="cuda")
-        full = data.buckets[(h, w)]
-        run = make_chunk_train_step(TRAIN_BATCH, augment=True)
-        perm = epoch_permutation(full.n, 42, 0, tag, "cuda")
-        step_s = []
-        for s in range(full_batches):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            loss = run(state, full, perm, 1, s)["loss"].item()
-            step_s.append(time.perf_counter() - t)
-            if not np.isfinite(loss):
-                raise AssertionError(f"non-finite loss {loss}")
-        prof = device_kernels(lambda: run(state, full, perm, 4, 0))
-        del data, full
-        median = float(np.median(step_s))
-        result.update(
-            train_model_s=run_s, epoch_losses=history, epochs=epochs, host_epochs=host_epochs,
-            launches=launches, launches_per_step=launches / (train_steps + eval_steps),
-            backward_launches_per_train_step=backward_launches / train_steps,
-            peak_memory_gb=peak_gb, step_s={"median": median, "min": min(step_s),
-                                            "max": max(step_s), "steps": len(step_s)},
-            images_per_s_full=TRAIN_BATCH / median,
-            profile={**prof, "device_busy_share": prof["device_s"] / prof["profiled_wall_s"]})
-        log(f"[device data] epoch wall s: device-resident {[r['seconds'] for r in epochs]}, "
-            f"host loader {[r['seconds'] for r in host_epochs]} (same data, same run); "
-            f"full-canvas step (synchronised) median {median:.4f} s of {len(step_s)}, "
-            f"{TRAIN_BATCH / median:.1f} images/s; profiled 4-step call "
-            f"{prof['device_s'] * 1e3:.1f} ms on the device in {prof['profiled_wall_s'] * 1e3:.1f} "
-            f"ms wall, {100 * result['profile']['device_busy_share']:.1f}% busy")
-
         # A resident size users run: one full-canvas bucket of RESIDENT_ROWS rows.
-        log(f"[device data] host MemAvailable {mem_available_gb():.2f} GB")
         ids = train_set.sizes[(w, h)][:RESIDENT_DISTINCT]
         distinct = [gray_edges(train_set.images[i]) for i in ids]
         big = ImageDataset.from_arrays(
@@ -1966,32 +1451,17 @@ def device_data_phase(fa, rng) -> dict:
         idx = torch.arange(0, RESIDENT_ROWS, RESIDENT_ROWS // TRAIN_BATCH,
                            device="cuda")[:TRAIN_BATCH]
         gathered = {}
-        result["resident"] = {}
         for pack_bits in (8, 4):
             torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            t = time.perf_counter()
             staged = DeviceResidentData.from_dataset(big, seq_pad_multiple=32, device="cuda",
                                                      pack_bits=pack_bits)
-            torch.cuda.synchronize()
-            stage_s = time.perf_counter() - t
             bucket = staged.buckets[(h, w)]
             gathered[pack_bits] = gather_batch(bucket, idx)[0]
             perm = epoch_permutation(bucket.n, 42, 0, tag, "cuda")
-            torch.cuda.synchronize()
-            t = time.perf_counter()
             loss = run(state, bucket, perm, DD_STEPS_PER_CALL, 0)["loss"].item()
-            call_s = time.perf_counter() - t
-            row = {"rows": bucket.n, "resident_gb": bucket.images.nbytes / 1e9,
-                   "labels_gb": bucket.labels.nbytes / 1e9, "staging_s": stage_s,
-                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-                   "step_s": call_s / DD_STEPS_PER_CALL, "loss": loss}
-            result["resident"][pack_bits] = row
-            log(f"[device data] {bucket.n} resident {(h, w)} rows at pack_bits {pack_bits}: "
-                f"staged in {stage_s:.1f} s, {row['resident_gb']:.3f} GB of images; one call of "
-                f"{DD_STEPS_PER_CALL} steps beside it {call_s:.2f} s "
-                f"({row['step_s']:.4f} s a step), loss {loss:.4f}; peak memory "
-                f"{row['peak_memory_gb']:.2f} GB")
+            log(f"[device data] {bucket.n} resident {(h, w)} rows at pack_bits {pack_bits}, "
+                f"{bucket.images.nbytes / 1e9:.3f} GB of images; one call of "
+                f"{DD_STEPS_PER_CALL} steps beside it, loss {loss:.4f}")
             if not np.isfinite(loss):
                 raise AssertionError(f"non-finite loss beside the resident bucket: {loss}")
             del staged, bucket, perm
@@ -2004,37 +1474,23 @@ def device_data_phase(fa, rng) -> dict:
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("the 4-bit gather departs from the 8-bit one")
-        result["pack4_gather_max_err"] = err_max
         del gathered, big, state
     torch.cuda.empty_cache()
-    log("[device data] " + json.dumps(result))
-    return result
+    return {"launches": launches, "launches_per_step": launches / (train_steps + eval_steps),
+            "backward_launches_per_train_step": backward_launches / train_steps}
 
 
-def decode_profile(fn, steps) -> dict:
-    """A decode's wall time (median of REPEATS) and one profiled call's
-    device time and kernels per step."""
-    wall = wall_s(fn)
-    prof = device_kernels(fn)
-    return {"wall_s": wall, "device_s": prof["device_s"], "kernels": prof["kernels"],
-            "kernels_per_step": prof["kernels"] / steps, "steps": steps,
-            "device_busy_share": prof["device_s"] / wall, "top": prof["top"][:4]}
-
-
-def int8_phase(fa, batch) -> dict:
+def int8_phase(batch) -> dict:
     """Phase 9: int8 cross- and self-attention K/V on 8 full canvases."""
     from texocr_tpu_torch.models import greedy_decode
-    from texocr_tpu_torch.ops import decode_attention as da
 
     engine = flagship_engine(kv_quant="int8", self_kv_quant="int8")
     engine.generate_batch(batch, max_len=DECODE_STEPS)  # the key's capture
-    torch.cuda.synchronize()
-    fa.flash_attention.launches = 0
-    da.launches = 0
-    tokens = engine.generate_batch(batch, max_len=DECODE_STEPS)
-    torch.cuda.synchronize()
-    launches = expect_launches(fa, 1, "int8 generate_batch")
-    decode_launches = expect_decode_launches(engine, batch_steps(engine, tokens),
+    with counted() as n:
+        tokens = engine.generate_batch(batch, max_len=DECODE_STEPS)
+        torch.cuda.synchronize()
+    launches = expect_launches(n, 1, "int8 generate_batch")
+    decode_launches = expect_decode_launches(engine, n, batch_steps(engine, tokens),
                                              "int8 generate_batch")
     if tokens.shape != (BATCH, DECODE_STEPS):
         raise AssertionError(f"int8 tokens of shape {tuple(tokens.shape)}")
@@ -2060,15 +1516,13 @@ def int8_phase(fa, batch) -> dict:
         f"differing token (first differences {first.tolist()}); tokens agreeing "
         f"{100 * agree:.1f}%; flash launches {launches} for 1 encode; decode attention "
         f"launches {decode_launches['launches']} over {decode_launches['steps']} decoded steps "
-        f"(decode times: phase 6b) {'ok' if ok else 'FAIL'}")
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("int8 decode logits outside the int8 budget")
-    return {"launches": launches, "encodes": 1, "decode_launches": decode_launches,
-            "err_ratio": err / scale,
-            "tokens_agree": agree, "first_difference": first.tolist()}
+    return {"launches": launches, "encodes": 1, "decode_launches": decode_launches}
 
 
-def sample_phase(fa, batch) -> dict:
+def sample_phase(batch) -> dict:
     """Phase 10: sampled decode, its limits and its filter."""
     from texocr_tpu_torch.models import greedy_decode, sampled_decode
 
@@ -2102,10 +1556,9 @@ def sample_phase(fa, batch) -> dict:
 
     engine = flagship_engine()
     engine.generate_batch(batch, max_len=DECODE_STEPS, mode="sample")  # the key's capture
-    torch.cuda.synchronize()
-    fa.flash_attention.launches = 0
-    wall = wall_s(lambda: engine.generate_batch(batch, max_len=DECODE_STEPS, mode="sample"))
-    launches = expect_launches(fa, REPEATS, "sample generate_batch")
+    with counted() as n:
+        engine.generate_batch(batch, max_len=DECODE_STEPS, mode="sample")
+    launches = expect_launches(n, 1, "sample generate_batch")
     model = engine.model
     with torch.inference_mode():
         enc = model.encode(to_input(batch))
@@ -2116,35 +1569,26 @@ def sample_phase(fa, batch) -> dict:
     ok = bool((above < TOPK).all())
     log(f"[sample] bf16, batch {BATCH} (160, 1008), temp 0.3, {DECODE_STEPS} steps: every "
         f"token in its step's top {TOPK} ({int(above.max())} logits above the worst) "
-        f"{'ok' if ok else 'FAIL'}; generate_batch median {wall:.3f} s, "
-        f"{BATCH / wall:.2f} img/s (decode times: phase 6b); flash launches {launches} for "
-        f"{REPEATS} encodes")
+        f"{'ok' if ok else 'FAIL'}; generate_batch's flash launches {launches} for 1 encode")
     if not ok:
         raise AssertionError("a sampled token lies outside the top-k filter")
-    return {"launches": launches, "encodes": REPEATS, "generate_batch_s": wall,
-            "tiny_temp_exact_rows": exact_rows, "departures": departures}
+    return {"launches": launches, "encodes": 1}
 
 
-def beam_phase(fa, batch) -> dict:
-    """Phase 11: beam search, timed in bf16 and checked in float32."""
+def beam_phase(batch) -> dict:
+    """Phase 11: beam search through the graphs in bf16, checked in float32."""
     from texocr_tpu_torch.models import beam_decode, greedy_decode
     from texocr_tpu_torch.models.beam import sequence_logprob
-    from texocr_tpu_torch.models.generate import DECODE_CHUNK
 
     engine = flagship_engine()
     engine.generate_batch(batch, max_len=DECODE_STEPS, mode="beam", beam_size=BEAM)  # capture
-    torch.cuda.synchronize()
-    fa.flash_attention.launches = 0
-    wall = wall_s(lambda: engine.generate_batch(batch, max_len=DECODE_STEPS, mode="beam",
-                                                beam_size=BEAM))
-    launches = expect_launches(fa, REPEATS, "beam generate_batch")
-    steps = -(-DECODE_STEPS // DECODE_CHUNK) * DECODE_CHUNK  # whole chunks (models/beam.py)
-    log(f"[beam] bf16, batch {BATCH} x beam {BEAM} (160, 1008), {DECODE_STEPS} tokens "
-        f"({steps} steps): generate_batch median {wall:.3f} s, {BATCH / wall:.2f} img/s "
-        f"(decode times: phase 6b); flash launches {launches} for {REPEATS} encodes")
+    with counted() as n:
+        engine.generate_batch(batch, max_len=DECODE_STEPS, mode="beam", beam_size=BEAM)
+    launches = expect_launches(n, 1, "beam generate_batch")
+    log(f"[beam] bf16, batch {BATCH} x beam {BEAM} (160, 1008), {DECODE_STEPS} tokens through "
+        f"the graphs: flash launches {launches} for 1 encode")
     del engine
 
-    checks = {}
     for quant in ("none", "int8"):
         m = flagship_engine(dtype="float32", self_kv_quant=quant).model
         c = m.config
@@ -2166,14 +1610,12 @@ def beam_phase(fa, batch) -> dict:
             tf = sequence_logprob(m, enc, tokens, **score)
             ok = ok and torch.allclose(scores, tf, rtol=SCORE_RTOL, atol=SCORE_RTOL)
             note += f", teacher-forced {tf.tolist()}"
-        checks[quant] = {"scores": scores.tolist(), "forced": forced.tolist()}
         log(f"[beam] float32, 2 full canvases, {BEAM_CHECK_STEPS} steps, self_kv_quant "
             f"{quant}: {note} (rtol {SCORE_RTOL:g}) {'ok' if ok else 'FAIL'}")
         del m
         if not ok:
             raise AssertionError(f"beam search check failed (self_kv_quant {quant})")
-    return {"launches": launches, "encodes": REPEATS, "generate_batch_s": wall,
-            "images_per_s": BATCH / wall, "checks": checks}
+    return {"launches": launches, "encodes": 1}
 
 
 def png_bytes(img: np.ndarray, rgb: bool = False) -> bytes:
@@ -2204,7 +1646,7 @@ def png_bytes(img: np.ndarray, rgb: bool = False) -> bytes:
             + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
 
 
-def http_phase(fa, rng) -> dict:
+def http_phase(rng) -> dict:
     """Phase 12: the HTTP server over the micro-batcher, greedy."""
     from texocr_tpu_torch.serving.batcher import ServingBatcher
     from texocr_tpu_torch.serving.http_server import make_server, serve_in_thread
@@ -2232,34 +1674,25 @@ def http_phase(fa, rng) -> dict:
         def post(data, timeout=600):
             req = urllib.request.Request(f"{url}/ocr", data=data, method="POST",
                                          headers={"Content-Type": "image/png"})
-            t0 = time.perf_counter()
             with urllib.request.urlopen(req, timeout=timeout) as r:
-                payload = json.loads(r.read())
-            return payload, time.perf_counter() - t0
+                return json.loads(r.read())
 
         solo = canvas(rng, *sizes[0])
         want_ids, _ = engine(solo, max_len=DECODE_STEPS)
         engine.generate_batch = recording
-        fa.flash_attention.launches = 0
-        payload, _ = post(png_bytes(solo))
-        if payload["tokens"] != want_ids:
-            raise AssertionError("a solo POST differs from engine(img) on the same canvas")
-        # Every other request is RGB: the server turns it to grey.
-        images = [canvas(rng, *sizes[i % 3]) for i in range(HTTP_REQUESTS)]
-        bodies = [png_bytes(img, rgb=i % 2 == 1) for i, img in enumerate(images)]
-        decode_ms = {"grey": [], "rgb": []}
-        for i, (img, body) in enumerate(zip(images, bodies)):
-            t0 = time.perf_counter()
-            grey = decode_image(body)
-            decode_ms["rgb" if i % 2 else "grey"].append((time.perf_counter() - t0) * 1e3)
-            if not np.array_equal(grey, img):
-                raise AssertionError("decode_image does not return the canvas it was given")
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=HTTP_CONCURRENCY) as ex:
-            results = list(ex.map(post, bodies))
-        total_s = time.perf_counter() - t0
-        launches = expect_launches(fa, len(formed), "http")
-        for payload, _ in results:
+        with counted() as n:
+            if post(png_bytes(solo))["tokens"] != want_ids:
+                raise AssertionError("a solo POST differs from engine(img) on the same canvas")
+            # Every other request is RGB: the server turns it to grey.
+            images = [canvas(rng, *sizes[i % 3]) for i in range(HTTP_REQUESTS)]
+            bodies = [png_bytes(img, rgb=i % 2 == 1) for i, img in enumerate(images)]
+            for img, body in zip(images, bodies):
+                if not np.array_equal(decode_image(body), img):
+                    raise AssertionError("decode_image does not return the canvas it was given")
+            with ThreadPoolExecutor(max_workers=HTTP_CONCURRENCY) as ex:
+                results = list(ex.map(post, bodies))
+        launches = expect_launches(n, len(formed), "http")
+        for payload in results:
             if not (isinstance(payload.get("latex"), str) and payload["tokens"]
                     and all(isinstance(t, int) and 0 <= t < 1000 for t in payload["tokens"])):
                 raise AssertionError(f"bad /ocr response: {str(payload)[:200]}")
@@ -2277,31 +1710,19 @@ def http_phase(fa, rng) -> dict:
         server.shutdown()
         server.server_close()
         batcher.shutdown()
-    latency = [s for _, s in results]
-    requests = [n for _, n in formed[1:]]
-    result = {"requests": HTTP_REQUESTS, "concurrency": HTTP_CONCURRENCY,
-              "p50_s": float(np.percentile(latency, 50)),
-              "p99_s": float(np.percentile(latency, 99)), "total_s": total_s,
-              "requests_per_s": HTTP_REQUESTS / total_s, "batches_formed": formed[1:],
-              "mean_batch": float(np.mean(requests)), "launches": launches,
-              "encodes": len(formed),
-              "decode_image_ms": {kind: {"median": float(np.median(ms)), "max": max(ms)}
-                                  for kind, ms in decode_ms.items()}}
     log(f"[http] solo POST equals engine(img); {HTTP_REQUESTS} POSTs of {len(sizes)} canvas "
         f"sizes (grey and RGB PNGs, rows filtered as PIL writes them) at concurrency "
-        f"{HTTP_CONCURRENCY}, max_len {DECODE_STEPS}: p50 {result['p50_s']:.3f} s, p99 "
-        f"{result['p99_s']:.3f} s, {result['requests_per_s']:.2f} req/s; decode_image alone "
-        f"(ms, median and max of {HTTP_REQUESTS // 2} each) {result['decode_image_ms']}; formed "
-        f"batches (rows, requests) {formed[1:]} (mean {result['mean_batch']:.2f} requests); "
-        f"/healthz ok, 400 for no image; flash launches {launches} for {len(formed)} encodes ok")
-    return result
+        f"{HTTP_CONCURRENCY}, max_len {DECODE_STEPS}; decode_image gives back every canvas; "
+        f"formed batches (rows, requests) {formed[1:]}; /healthz ok, 400 for no image; flash "
+        f"launches {launches} for {len(formed)} encodes ok")
+    return {"launches": launches, "encodes": len(formed)}
 
 
-def eval_phase(fa, rng) -> dict:
+def eval_phase(rng) -> dict:
     """Phase 13: test_model through the CUDA graphs on a pickled split of two
     full batches, greedy and beam 5 (see the module docstring)."""
     from texocr_tpu_torch.data.dataset import ImageDataset, create_dataloader
-    from texocr_tpu_torch.evaluation.evaluate import graph_engines, test_model
+    from texocr_tpu_torch.evaluation.evaluate import test_model
     from texocr_tpu_torch.evaluation.metrics import batch_acc, edit_similarity, exact_match_rate
     from texocr_tpu_torch.models import generate
 
@@ -2319,49 +1740,21 @@ def eval_phase(fa, rng) -> dict:
             u8 = np.stack([test_set.images[i] for i in ids])[..., None]
             batches.append((images, labels, u8))
         for mode in ("greedy", "beam"):
-            timed = {"keys": [], "capture_s": [], "graph_s": []}
-            build = graph_engines(model)
-
-            def factory(batch, canvas, max_len, mode_, beam_size):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                graphed = build(batch, canvas, max_len, mode_, beam_size)
-                torch.cuda.synchronize()
-                timed["capture_s"].append(time.perf_counter() - t0)
-                timed["keys"].append([batch, *canvas, max_len, mode_, beam_size])
-
-                def replay(images):
-                    torch.cuda.synchronize()
-                    t1 = time.perf_counter()
-                    tokens = graphed(images)
-                    torch.cuda.synchronize()
-                    timed["graph_s"].append(time.perf_counter() - t1)
-                    return tokens
-
-                return replay
-
             pairs = os.path.join(tmp, f"pairs_{mode}.jsonl")
-            fa.flash_attention.launches = 0
-            t0 = time.perf_counter()
-            got = test_model(test_set, model, config, max_len=EVAL_MAX_LEN, verbose=False,
-                             decode_mode=mode, beam_size=BEAM, pairs_out=pairs,
-                             engine_factory=factory)
-            seconds = time.perf_counter() - t0
+            with counted() as n:
+                got = test_model(test_set, model, config, max_len=EVAL_MAX_LEN, verbose=False,
+                                 decode_mode=mode, beam_size=BEAM, pairs_out=pairs)
             # Each key's capture runs one eager encode first (its warm-up).
-            encodes = got["batches"] + len(timed["keys"])
-            launches = expect_launches(fa, encodes, f"eval {mode}")
+            encodes = got["batches"] + n["keys"]
+            launches = expect_launches(n, encodes, f"eval {mode}")
 
             # The same collated float batches through the eager generate.
             with open(pairs) as f:
                 written = [json.loads(line)["pred"] for line in f]
-            eager_s, eager_rows = [], []
+            eager_rows = []
             for images, _, _ in batches:
-                x = torch.from_numpy(images).cuda()
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                pred = generate(model, x, max_len=EVAL_MAX_LEN, mode=mode, beam_size=BEAM)
-                torch.cuda.synchronize()
-                eager_s.append(time.perf_counter() - t1)
+                pred = generate(model, torch.from_numpy(images).cuda(), max_len=EVAL_MAX_LEN,
+                                mode=mode, beam_size=BEAM)
                 eager_rows += [[int(t) for t in row if t != 999] for row in pred.cpu().numpy()]
             same = written == eager_rows
 
@@ -2376,24 +1769,14 @@ def eval_phase(fa, rng) -> dict:
             want = {"token_acc": float(np.mean(accs)), "exact_match": float(np.mean(ems)),
                     "edit_similarity": float(np.mean(sims)), "batches": len(accs)}
             ok = got == want and got["batches"] == 2 and same
-            gain = float(np.mean(eager_s)) - float(np.mean(timed["graph_s"]))
-            wins_from = int(np.floor(timed["capture_s"][0] / gain)) + 1 if gain > 0 else None
-            log(f"[eval] test_model {mode} through the graphs: {got} in {seconds:.1f} s; from "
-                f"generate_batch on the same batches {want}; pairs_out tokens "
+            log(f"[eval] test_model {mode} through the graphs: {got}; from generate_batch on "
+                f"the same batches {want}; pairs_out tokens "
                 f"{'bit-equal to' if same else 'DIFFER FROM'} the eager generate's; flash "
                 f"launches {launches} for {encodes} encodes ({got['batches']} replays, "
-                f"{len(timed['keys'])} capture warm-ups) {'ok' if ok else 'FAIL'}")
-            log(f"[eval] {mode}: keys {timed['keys']}; first key's capture "
-                f"{timed['capture_s'][0]:.2f} s; wall s per batch, graphs after capture "
-                f"{[round(t, 4) for t in timed['graph_s']]} against eager "
-                f"{[round(t, 4) for t in eager_s]} on the same batches; the graphs win from "
-                f"{wins_from} batches of a key on")
+                f"{n['keys']} capture warm-ups) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"test_model's {mode} decode through the graphs differs")
-            out[mode] = {**got, "seconds": seconds, "launches": launches, "encodes": encodes,
-                         "keys": timed["keys"], "capture_s": timed["capture_s"],
-                         "graph_s": timed["graph_s"], "eager_s": eager_s,
-                         "graphs_win_from_batches": wins_from}
+            out[mode] = {"launches": launches, "encodes": encodes}
     return out
 
 
@@ -2406,46 +1789,39 @@ def variant_overrides(name) -> dict:
             "no cross": {"decoder": dict(FLAGSHIP["decoder"], cross_attend=False)}}[name]
 
 
-def serve_variant(fa, name, batch, rng, flagship_encode_err) -> dict:
+def serve_variant(name, batch, rng, flagship_encode_err) -> dict:
     """A variant's greedy generate_batch through the CUDA graphs against the
-    eager generate, its launches, its float32 encode on both paths and its
-    encode and decode wall times. A variant that keeps the flagship's
-    encoder (``glu`` reaches only the decoder) reuses phase 7's reading of
-    that encoder, ``flagship_encode_err``, instead of encoding again."""
+    eager generate, its launches and its float32 encode on both paths. A
+    variant that keeps the flagship's encoder (``glu`` reaches only the
+    decoder) reuses phase 7's reading of that encoder,
+    ``flagship_encode_err``, instead of encoding again."""
     from texocr_tpu_torch.models import generate
 
     overrides = variant_overrides(name)
     engine = flagship_engine(**overrides)
-    t0 = time.perf_counter()
     engine.generate_batch(batch, max_len=DECODE_STEPS)  # the key's capture
-    torch.cuda.synchronize()
-    capture_s = time.perf_counter() - t0
-    fa.flash_attention.launches = 0
-    tokens = engine.generate_batch(batch, max_len=DECODE_STEPS)
-    torch.cuda.synchronize()
-    launches = expect_launches(fa, 1, f"{name} generate_batch")
+    with counted() as n:
+        tokens = engine.generate_batch(batch, max_len=DECODE_STEPS)
+        torch.cuda.synchronize()
+    launches = expect_launches(n, 1, f"{name} generate_batch")
     with torch.inference_mode():
         eager = generate(engine.model, to_input(batch), max_len=DECODE_STEPS)
     same = tokens.shape == (BATCH, DECODE_STEPS) and torch.equal(tokens, eager)
-    graphed = engine._decode_fn(tuple(batch.shape), DECODE_STEPS, "greedy", BEAM, 0.3)
-    encode_s, decode_s = wall_s(graphed.encode), wall_s(graphed.decode)
     own_encoder = "encoder" in overrides
     err = encode_paths_err(rng, overrides) if own_encoder else flagship_encode_err
     ok = same and err <= F32_TOL
     log(f"[variants] {name}: batch {BATCH} (160, 1008) bf16 greedy {DECODE_STEPS} tokens "
         f"through the graphs, tokens {'bit-equal to' if same else 'DIFFER FROM'} the eager "
-        f"generate's; flash launches {launches} for 1 encode; encode {encode_s * 1e3:.2f} ms, "
-        f"decode {decode_s:.3f} s wall (graph replays, median of {REPEATS}); capture "
-        f"{capture_s:.2f} s; float32 encode kernel vs plain path max err {err:.3e} "
+        f"generate's; flash launches {launches} for 1 encode; float32 encode kernel vs plain "
+        f"path max err {err:.3e} "
         f"({'this encoder' if own_encoder else 'the flagship encoder, phase 7'}; tol "
         f"{F32_TOL:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"the {name} variant failed on the card")
-    return {"launches": launches, "encodes": 1, "encode_s": encode_s, "decode_s": decode_s,
-            "capture_s": capture_s, "f32_encode_err": err}
+    return {"launches": launches, "encodes": 1}
 
 
-def no_cross_variant(fa, rng) -> dict:
+def no_cross_variant(rng) -> dict:
     """The decoder without cross-attention: VARIANT_TRAIN_STEPS train steps
     at batch TRAIN_BATCH on full canvases, and every decode entry point
     refusing it."""
@@ -2467,16 +1843,9 @@ def no_cross_variant(fa, rng) -> dict:
     for i, row in enumerate(rows):
         labels[i, : len(row) + 2] = [998, *row, 997]
     x, y = put_batch(images, labels, "cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = 0
-    losses, step_s = [], []
-    for _ in range(VARIANT_TRAIN_STEPS):
-        t0 = time.perf_counter()
-        losses.append(float(train_step(state, x, y)["loss"]))  # the read synchronises
-        step_s.append(time.perf_counter() - t0)
-    launches = fa.flash_attention.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with counted() as n:
+        losses = [float(train_step(state, x, y)["loss"]) for _ in range(VARIANT_TRAIN_STEPS)]
+    launches = n["flash"]
     refused = []
     engine = flagship_engine(**overrides)
     for what, call in (
@@ -2492,18 +1861,16 @@ def no_cross_variant(fa, rng) -> dict:
     ok = (np.isfinite(losses).all() and launches == 0
           and refused == ["TexOCR.generate_batch", "make_graphed_generate"])
     log(f"[variants] no cross: {VARIANT_TRAIN_STEPS} train steps at batch {TRAIN_BATCH} "
-        f"{labels.shape[1]} tokens, full canvases, bf16: losses {losses}, step s "
-        f"{[round(t, 4) for t in step_s]} (the first pays the warm-up), peak memory "
-        f"{peak_gb:.2f} GB; flash launches {launches} (the decoder reads no encoder output, "
+        f"{labels.shape[1]} tokens, full canvases, bf16: losses {losses}; flash launches "
+        f"{launches} (the decoder reads no encoder output, "
         f"so the step does not encode); ValueError from {refused} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the no-cross variant failed on the card")
-    return {"launches": launches, "encodes": 0, "losses": losses, "step_s": step_s,
-            "peak_memory_gb": peak_gb, "tokens": int(labels.shape[1])}
+    return {"launches": launches, "encodes": 0}
 
 
-def maps_variant(fa, batch, rng) -> dict:
+def maps_variant(batch, rng) -> dict:
     """A teacher-forced decoder(..., return_attn=True) replay at batch BATCH x
     MAPS_TOKENS on the flagship, then the attention-maps tool's main on one
     full-canvas PNG."""
@@ -2518,13 +1885,9 @@ def maps_variant(fa, batch, rng) -> dict:
     seq[:, 0] = 998
     with torch.inference_mode():
         enc = model.encode(to_input(batch))
-        torch.cuda.synchronize()
-        fa.flash_attention.launches = 0
-        t0 = time.perf_counter()
-        logits, maps = model.dec(seq, enc, return_attn=True)
-        torch.cuda.synchronize()
-        replay_s = time.perf_counter() - t0
-        launches = fa.flash_attention.launches
+        with counted() as n:
+            logits, maps = model.dec(seq, enc, return_attn=True)
+        launches = n["flash"]
         cross = maps[1::2]
         shapes = sorted({tuple(m.shape) for m in cross})
         row_err = max((m.sum(-1) - 1).abs().max().item() for m in maps)
@@ -2533,8 +1896,7 @@ def maps_variant(fa, batch, rng) -> dict:
           and launches == 0 and bool(torch.isfinite(logits).all()))
     log(f"[variants] maps: decoder(return_attn=True) at batch {BATCH} x {MAPS_TOKENS} tokens, "
         f"bf16: {len(maps)} maps, cross maps {shapes} float32, rows sum to 1 within "
-        f"{row_err:.2e} (tol {F32_TOL:g}); flash launches {launches}; {replay_s * 1e3:.1f} ms "
-        f"wall {'ok' if ok else 'FAIL'}")
+        f"{row_err:.2e} (tol {F32_TOL:g}); flash launches {launches} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the attention maps failed on the card")
     del logits, maps, cross, enc
@@ -2545,14 +1907,12 @@ def maps_variant(fa, batch, rng) -> dict:
             f.write(encode_png(canvas(rng, 160, 1008)))
         with open(cfg, "w") as f:
             json.dump(dict(FLAGSHIP, tokenizer_path=DEFAULT_VOCAB_PATH, seed=0), f)
-        fa.flash_attention.launches = 0
-        t0 = time.perf_counter()
-        rc = attention_maps.main([png, "--config", cfg, "--out", out, "--max_len",
-                                  str(DECODE_STEPS), "--max_tokens", str(MAPS_PNGS),
-                                  "--device", "cuda"])
-        tool_s = time.perf_counter() - t0
+        with counted() as n:
+            rc = attention_maps.main([png, "--config", cfg, "--out", out, "--max_len",
+                                      str(DECODE_STEPS), "--max_tokens", str(MAPS_PNGS),
+                                      "--device", "cuda"])
         # The capture's eager warm-up, the graph replay and the maps replay's.
-        tool_launches = expect_launches(fa, 3, "attention-maps tool")
+        tool_launches = expect_launches(n, 3, "attention-maps tool")
         with open(os.path.join(out, "summary.json")) as f:
             summary = json.load(f)
         names = sorted(os.listdir(out))
@@ -2566,31 +1926,29 @@ def maps_variant(fa, batch, rng) -> dict:
     log(f"[variants] attention-maps tool on a (160, 1008) PNG: rc {rc}, "
         f"{len(summary['tokens'])} tokens decoded, {n_png} overlays read back at "
         f"{overlay.shape}, grid {summary['grid']}; flash launches {tool_launches} for 3 "
-        f"encodes (the capture's warm-up, the graph replay, the maps replay); {tool_s:.1f} s "
-        f"with the key's capture "
+        f"encodes (the capture's warm-up, the graph replay, the maps replay) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the attention-maps tool failed on the card")
-    return {"replay": {"launches": launches, "encodes": 0, "seconds": replay_s,
-                       "row_err": row_err},
-            "tool": {"launches": tool_launches, "encodes": 3, "seconds": tool_s}}
+    return {"replay": {"launches": launches, "encodes": 0},
+            "tool": {"launches": tool_launches, "encodes": 3}}
 
 
-def variants_phase(fa, batch, rng, flagship_encode_err) -> dict:
+def variants_phase(batch, rng, flagship_encode_err) -> dict:
     """Phase 13b: the model variants and the attention maps (see the module
-    docstring); ``flagship_encode_err``: phase 7's float32 encoder reading."""
-    out = {name: serve_variant(fa, name, batch, rng, flagship_encode_err)
+    docstring); ``flagship_encode_err``: phase 7's float32 encoder reading.
+    Returns each path's launches and encodes."""
+    out = {name: serve_variant(name, batch, rng, flagship_encode_err)
            for name in ("patch", "glu false")}
-    out["no cross"] = no_cross_variant(fa, rng)
-    maps = maps_variant(fa, batch, rng)
+    out["no cross"] = no_cross_variant(rng)
+    maps = maps_variant(batch, rng)
     out["maps replay"], out["maps tool"] = maps["replay"], maps["tool"]
-    log("[variants] " + json.dumps(out))
     return out
 
 
 DATA_CANVAS = (160, 1008)  # phase 15 pads every render onto the flagship's canvas
 DATA_SPLITS = {"train": 2 * TRAIN_BATCH, "test": 16, "val": TRAIN_BATCH}  # rows per split
-ENCODE_LABELS = 20_000  # labels timed through encode_batch, native and pure Python
+ENCODE_LABELS = 20_000  # labels through encode_batch, native against pure Python
 LABEL_SYMBOLS = ("x", "y", "z", "a", "b", "n", "k", "\\alpha", "\\beta", "\\theta", "\\pi",
                  "\\lambda")
 
@@ -2617,35 +1975,17 @@ def latex_labels(rng, n) -> list:
     return labels
 
 
-def host_cpu() -> str:
-    """The host CPU's model and its count of CPUs, from /proc/cpuinfo: its
-    model name, or where that is missing or "unknown" (a virtualised kernel
-    may hide it; an Arm host has none) the machine and the fields that name
-    the part."""
-    with open("/proc/cpuinfo") as f:
-        fields = dict(line.split(":", 1) for line in f if ":" in line)
-    fields = {k.strip(): v.strip() for k, v in fields.items()}
-    name = fields.get("model name", "unknown")
-    if name in ("", "unknown"):
-        keys = ("vendor_id", "cpu family", "model", "cpu MHz", "CPU implementer", "CPU part")
-        name = ", ".join([platform.machine()] + [f"{k} {fields[k]}" for k in keys if k in fields])
-    return f"{name} x {os.cpu_count()}"
-
-
-def tokenizer_check(rng, card, cpu) -> dict:
+def tokenizer_check(rng) -> None:
     """Phase 15a: the g++-built native encoder, the goldens through encode
     and encode_batch, a retrain on the golden corpus, and encode_batch's
-    labels/s native against pure Python."""
+    native ids against pure Python's."""
     from texocr_tpu_torch.ops import build
     from texocr_tpu_torch.tokenizer import RegexBPETokenizer, load_default_tokenizer, native
 
-    t0 = time.perf_counter()
     library, _ = build.build(native.SOURCE)
-    build_s = time.perf_counter() - t0
     if not native.native_available():
         raise AssertionError(f"the native BPE encoder did not load: {native.native_error()}")
-    log(f"[data] {native.SOURCE} built by {build.host_compiler_path()} in {build_s:.2f} s "
-        f"({library.name})")
+    log(f"[data] {native.SOURCE} built by {build.host_compiler_path()} ({library.name})")
 
     with open(os.path.join(REPO, "tests", "goldens", "tokenizer_encode.json")) as f:
         goldens = json.load(f)
@@ -2664,36 +2004,24 @@ def tokenizer_check(rng, card, cpu) -> dict:
                              "did not run natively")
     corpus = "\n".join(t for t in texts if t) * golden_train["corpus_repeats"]
     trained = RegexBPETokenizer(golden_train["vocab_size"], dict(golden_train["special_tokens"]))
-    t0 = time.perf_counter()
     trained.train(corpus)
-    train_s = time.perf_counter() - t0
     golden_merges = {tuple(k): v for k, v in golden_train["merges"]}
     ok = trained.bp_merges == golden_merges
     log(f"[data] retrain on the golden corpus ({golden_train['vocab_size']} tokens, x"
-        f"{golden_train['corpus_repeats']}): {len(trained.bp_merges)} merges in {train_s:.2f} s, "
+        f"{golden_train['corpus_repeats']}): {len(trained.bp_merges)} merges, "
         f"{'equal to' if ok else 'FAIL: not'} the golden {len(golden_merges)}")
     if not ok:
         raise AssertionError("retrained merges differ from the golden")
 
     labels = latex_labels(rng, ENCODE_LABELS)
     calls = native.NativeBPEEncoder.calls
-    t0 = time.perf_counter()
     fast = tok.encode_batch(labels)
-    native_s = time.perf_counter() - t0
     if native.NativeBPEEncoder.calls != calls + 1:
         raise AssertionError("encode_batch did not run natively")
-    t0 = time.perf_counter()
-    slow = [tok.encode(t) for t in labels]
-    python_s = time.perf_counter() - t0
-    if fast != slow:
+    if fast != [tok.encode(t) for t in labels]:
         raise AssertionError("encode_batch's native ids differ from encode's")
-    rates = {"native": ENCODE_LABELS / native_s, "python": ENCODE_LABELS / python_s}
-    log(f"[data] encode_batch of {ENCODE_LABELS} seeded labels: native {native_s:.3f} s "
-        f"({rates['native']:.0f} labels/s), pure Python {python_s:.3f} s "
-        f"({rates['python']:.0f} labels/s), ids equal; host {cpu}; {card}")
-    return {"build_s": build_s, "retrain_s": train_s, "encode_s": {"native": native_s,
-                                                                    "python": python_s},
-            "labels_per_s": rates}
+    log(f"[data] encode_batch of {ENCODE_LABELS} seeded labels: native ids equal to pure "
+        f"Python's")
 
 
 def renderer_choice() -> str:
@@ -2711,7 +2039,7 @@ def renderer_choice() -> str:
     return "mathtext"
 
 
-def build_data(rng, root, cpu) -> dict:
+def build_data(rng, root) -> dict:
     """Phase 15b: split, render, prune, pad to DATA_CANVAS, then pickle every
     split eager and lazy through pickle_data with a .json data config."""
     from texocr_tpu_torch.data.factory import pickle_data, render_data, split_data
@@ -2739,7 +2067,6 @@ def build_data(rng, root, cpu) -> dict:
                        "typesets",
            "written": "neither the latex chain nor matplotlib: the phase writes each PNG at the "
                       "canvas rule with encode_png"}[renderer] + ")")
-    t0 = time.perf_counter()
     for split in DATA_SPLITS:
         split_dir = config[f"{split}_dir"]
         if renderer == "written":
@@ -2753,7 +2080,6 @@ def build_data(rng, root, cpu) -> dict:
             render_data.render_images(split_dir, num_processes=config["num_processes"],
                                       patch_size=config["patch_size"], renderer=renderer)
         render_data.prune_equations(split_dir)
-    render_s = time.perf_counter() - t0
 
     # Every render onto the full canvas, centred as convert -gravity center pads.
     sizes, rows = {}, {}
@@ -2775,38 +2101,29 @@ def build_data(rng, root, cpu) -> dict:
                 f.write(encode_png(full))
     if rows["train"] < DATA_SPLITS["train"] or rows["val"] < DATA_SPLITS["val"]:
         raise AssertionError(f"rendered rows {rows}, fewer than {DATA_SPLITS}")
-    log(f"[data] split {total} equations, rendered ({renderer}) in {render_s:.2f} s: rows "
-        f"{rows}, rendered sizes (h, w) from {min(sizes)} to {max(sizes)} over {len(sizes)} "
-        f"sizes, padded to {DATA_CANVAS}; host {cpu}")
+    log(f"[data] split {total} equations, rendered ({renderer}): rows {rows}, rendered sizes "
+        f"(h, w) from {min(sizes)} to {max(sizes)} over {len(sizes)} sizes, padded to "
+        f"{DATA_CANVAS}")
 
-    pickles = {}
     for lazy in (False, True):
         kind = "lazy" if lazy else "eager"
         for split in DATA_SPLITS:
             os.makedirs(os.path.join(root, kind, split))
-            path = os.path.join(root, kind, split, f"{split}set.pkl")
-            t0 = time.perf_counter()
             pickle_data.main(pickle_data.parse_args(
-                ["-c", cfg_path, "--split", split, "-s", path] + ["--lazy"] * lazy))
-            pickles[kind, split] = {"build_s": time.perf_counter() - t0,
-                                    "mb": os.path.getsize(path) / 1e6}
-    log("[data] pickles (build s, MB): " + json.dumps(
-        {f"{kind} {split}": [round(r["build_s"], 3), round(r["mb"], 3)]
-         for (kind, split), r in pickles.items()}) + f"; host {cpu}")
-    return {"renderer": renderer, "render_s": render_s, "rows": rows, "pickles": pickles,
-            "config": config}
+                ["-c", cfg_path, "--split", split, "-s",
+                 os.path.join(root, kind, split, f"{split}set.pkl")] + ["--lazy"] * lazy))
 
 
-def data_phase(fa, rng) -> dict:
+def data_phase(rng) -> dict:
     """Phase 15: the data path on the card's machine, then the flagship
     trained on what it built (see the module docstring)."""
     from texocr_tpu_torch.data.dataset import create_dataloader, load_datasets
     from texocr_tpu_torch.training import cli as train_cli
 
-    card, cpu = card_line(), host_cpu()
-    out = {"tokenizer": tokenizer_check(rng, card, cpu)}
+    tokenizer_check(rng)
+    out = {}
     with tempfile.TemporaryDirectory() as root:
-        out["factory"] = build_data(rng, root, cpu)
+        build_data(rng, root)
         config = train_config(os.path.join(root, "checkpoints"))
         config["n_epochs"] = 1
         cfg_path = os.path.join(root, "train.json")
@@ -2815,13 +2132,11 @@ def data_phase(fa, rng) -> dict:
 
         for kind in ("eager", "lazy"):
             metrics = os.path.join(root, f"{kind}.jsonl")
-            fa.flash_attention.launches = 0
-            t0 = time.perf_counter()
-            train_cli.main(train_cli.parse_args(["-d", os.path.join(root, kind), "--config",
-                                                 cfg_path, "--metrics", metrics,
-                                                 "--device", "cuda"]))
-            run_s = time.perf_counter() - t0
-            launches = fa.flash_attention.launches
+            with counted() as n:
+                train_cli.main(train_cli.parse_args(["-d", os.path.join(root, kind), "--config",
+                                                     cfg_path, "--metrics", metrics,
+                                                     "--device", "cuda"]))
+            launches = n["flash"]
             with open(metrics) as f:
                 records = [json.loads(line) for line in f]
             epochs = [r for r in records if r["event"] == "train_epoch"]
@@ -2833,15 +2148,11 @@ def data_phase(fa, rng) -> dict:
                   and np.isfinite(losses).all() and launches == N_LAYERS * (steps + val_steps))
             log(f"[data] {kind}: training.cli, 1 epoch at batch {TRAIN_BATCH} on {DATA_CANVAS}: "
                 f"{steps} train and {val_steps} val steps, losses {losses}, flash launches "
-                f"{launches}, epoch wall {epochs[0]['seconds']:.3f} s, run {run_s:.1f} s; "
-                f"pickle {out['factory']['pickles'][kind, 'train']['mb']:.3f} MB built in "
-                f"{out['factory']['pickles'][kind, 'train']['build_s']:.3f} s; host {cpu}; "
-                f"{card} {'ok' if ok else 'FAIL'}")
+                f"{launches} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{kind} training: expected {N_LAYERS} flash launches per "
                                      "encode, finite losses and one epoch")
-            out[kind] = {"launches": launches, "encodes": int(steps) + val_steps,
-                         "epoch_s": epochs[0]["seconds"], "run_s": run_s, "losses": losses}
+            out[kind] = {"launches": launches, "encodes": int(steps) + val_steps}
 
         # The lazy pickle's batches are the eager one's (augmentation off).
         eager, lazy = load_datasets(os.path.join(root, "eager")), load_datasets(
@@ -2856,63 +2167,19 @@ def data_phase(fa, rng) -> dict:
                     raise AssertionError("a lazy batch differs from the eager one")
                 n_batches += 1
         log(f"[data] lazy and eager batches equal, augmentation off ({n_batches} batches)")
-    out["factory"].pop("config")
-    out["factory"]["pickles"] = {f"{k} {s}": r for (k, s), r in out["factory"]["pickles"].items()}
     return out
 
 
-def trace_times(path) -> dict:
-    """From a Chrome trace that ``telemetry.profile_trace`` wrote: the host
-    time (ms) of each collective span of ``parallel/layers.py``, summed per
-    name, and the device time of the NCCL kernels (gloo runs its collectives
-    on the host, staging CUDA tensors through host memory)."""
-    from texocr_tpu_torch.parallel import layers
-
-    out = dict.fromkeys((layers.GRAD_SPAN, layers.MODEL_SPAN, layers.SUM_SPAN, layers.ROWS_SPAN,
-                         "nccl_kernels"), 0.0)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    for e in events:
-        if e.get("ph") != "X":
-            continue
-        name, ms = e.get("name", ""), e.get("dur", 0) / 1e3
-        if e.get("cat") == "user_annotation" and name in out:
-            out[name] += ms
-        elif e.get("cat") == "kernel" and "nccl" in name.lower():
-            out["nccl_kernels"] += ms
-    return {f"{k}_ms": v for k, v in out.items()}
-
-
-def profiled_step(fn, logdir, name) -> dict:
-    """One synchronised call of ``fn`` under ``telemetry.profile_trace``: its
-    wall time, the collectives' times from the trace and their share of the
-    wall time."""
-    from texocr_tpu_torch.telemetry import profile_trace
-
-    with profile_trace(logdir, name):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = trace_times(os.path.join(logdir, f"{name}.json"))
-    host_ms = sum(v for k, v in spans.items() if k != "nccl_kernels_ms")
-    return {"profiled_wall_ms": wall_ms, **spans,
-            "collective_share": (host_ms + spans["nccl_kernels_ms"]) / wall_ms}
-
-
-def world1_phase(fa, trained) -> dict:
+def world1_phase(trained) -> dict:
     """Phase 16a: phase 8's train_model, data and seed on a process group of
     one rank over NCCL (the whole distributed path: the mesh, the global
     loss's count and the gradients' all-reduce on the card). Fatal: epoch
     losses beyond WORLD1_RTOL of phase 8's, other than 4 flash launches per
-    step. Prints the synchronised full-canvas step beside phase 8's and the
-    gradient all-reduce's bytes and time."""
+    step."""
     import torch.distributed as dist
 
     from texocr_tpu_torch.data.dataset import create_dataloader, load_datasets
     from texocr_tpu_torch.training.loop import train_model
-    from texocr_tpu_torch.training.train_step import make_train_step, put_batch
 
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1,
@@ -2921,12 +2188,10 @@ def world1_phase(fa, trained) -> dict:
             train_set, val_set, _ = load_datasets(trained["data_dir"])
             train_set.augment = True  # as phase 8
             config = train_config(os.path.join(tmp, "checkpoints"))
-            fa.flash_attention.launches = 0
-            t0 = time.perf_counter()
-            model, state, history = train_model(train_set, val_set, config, verbose=False,
-                                                device="cuda")
-            run_s = time.perf_counter() - t0
-            launches = fa.flash_attention.launches
+            with counted() as n:
+                model, state, history = train_model(train_set, val_set, config, verbose=False,
+                                                    device="cuda")
+            launches = n["flash"]
             eval_steps = TRAIN_EPOCHS * len(create_dataloader(val_set, config))
             if launches != 4 * (state.step + eval_steps):
                 raise AssertionError(f"world of 1: {launches} flash launches for {state.step} "
@@ -2936,38 +2201,14 @@ def world1_phase(fa, trained) -> dict:
             log(f"[parallel] (a) NCCL world of 1, mesh {{data: 1, model: 1}}: train_model "
                 f"epoch losses {history} against phase 8's {want}: max relative difference "
                 f"{err:.3e} (tol {WORLD1_RTOL:g}) {'ok' if err <= WORLD1_RTOL else 'FAIL'}; "
-                f"flash launches {launches}; {run_s:.1f} s")
+                f"flash launches {launches}")
             if not err <= WORLD1_RTOL:
                 raise AssertionError("the world-of-1 run's losses differ from phase 8's")
-
-            train_step = make_train_step(mask_pad=True)
-            full = [b for b in create_dataloader(train_set, config, seed_offset=TRAIN_EPOCHS)
-                    if b[0].shape[1:3] == TRAIN_BUCKETS[0][0]]
-            times = []
-            for i in range(PARALLEL_TIMED):
-                images, labels = put_batch(*full[i % len(full)], "cuda")
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                train_step(state, images, labels)["loss"].item()
-                times.append(time.perf_counter() - t0)
-            profile = profiled_step(lambda: train_step(state, images, labels), tmp, "world1")
-            grad_bytes = sum(p.grad.numel() * p.grad.element_size()
-                             for p in model.parameters() if p.grad is not None)
         finally:
             dist.destroy_process_group()
-    phase8 = trained["step_s"]["x".join(map(str, TRAIN_BUCKETS[0][0]))]["median"]
-    result = {"epoch_losses": history, "max_rel_diff": err, "launches": launches,
-              "step_s_median": float(np.median(times)), "phase8_step_s_median": phase8,
-              "grad_bytes": grad_bytes, **profile}
-    log(f"[parallel] (a) full-canvas step {result['step_s_median']:.4f} s (median of "
-        f"{PARALLEL_TIMED}, synchronised) against phase 8's {phase8:.4f} s; gradient "
-        f"all-reduce {grad_bytes / 1e6:.1f} MB a step: {profile['grad_all_reduce_ms']:.3f} ms "
-        f"on the host, {profile['nccl_kernels_ms']:.3f} ms of NCCL kernels; collectives "
-        f"{100 * profile['collective_share']:.2f}% of a profiled step "
-        f"({profile['profiled_wall_ms']:.1f} ms)")
     del model, state
     torch.cuda.empty_cache()
-    return result
+    return {"launches": launches}
 
 
 def parallel_batch(seed, n):
@@ -2989,39 +2230,29 @@ def flagship_model(dtype, mesh=None, **overrides):
                     device="cuda", seed=0, mesh=mesh)
 
 
-def parallel_steps(axis, sharded, logdir=None) -> dict:
+def parallel_steps(axis, sharded) -> dict:
     """PARALLEL_STEPS Adam steps of the bf16 flagship on the global batches
     of PARALLEL_BATCHES[axis] rows, on the mesh ``{axis: 2}`` if
-    ``sharded`` (else in one process): each step's global loss, this rank's
-    synchronised step times and flash launches, its peak memory and, with
-    ``logdir``, a further profiled step."""
-    from texocr_tpu_torch.ops import flash_attention as fa
+    ``sharded`` (else in one process): each step's global loss and this
+    rank's flash launches."""
     from texocr_tpu_torch.parallel.mesh import create_mesh
     from texocr_tpu_torch.parallel.sharding import batch_rows
     from texocr_tpu_torch.training.optimizers import get_optimizer
     from texocr_tpu_torch.training.train_step import create_train_state, make_train_step
 
     mesh = create_mesh({axis: 2}, device="cuda") if sharded else None
-    torch.cuda.reset_peak_memory_stats()
     model = flagship_model("bfloat16", mesh)
     state = create_train_state(model, get_optimizer("Adam", {"lr": 5e-4}, model.parameters(),
                                                     model.tp), seed=42)
     step = make_train_step(mask_pad=True)
-    out = {"losses": [], "step_s": [], "launches": []}
+    out = {"losses": [], "launches": []}
     for i in range(PARALLEL_STEPS):
         images, labels = parallel_batch(i, PARALLEL_BATCHES[axis])
         rows = batch_rows(len(images), mesh)
         images, labels = (torch.from_numpy(x[rows]).cuda() for x in (images, labels))
-        fa.flash_attention.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out["losses"].append(step(state, images, labels)["loss"].item())
-        out["step_s"].append(time.perf_counter() - t0)
-        out["launches"].append(fa.flash_attention.launches)
-    if logdir is not None:
-        out["profile"] = profiled_step(lambda: step(state, images, labels), logdir,
-                                       f"{axis}_rank{torch.distributed.get_rank()}")
-    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with counted() as n:
+            out["losses"].append(step(state, images, labels)["loss"].item())
+        out["launches"].append(n["flash"])
     del model, state
     torch.cuda.empty_cache()
     return out
@@ -3031,34 +2262,29 @@ def parallel_decode(mesh=None) -> dict:
     """Float32 mesh_generate of PARALLEL_DECODE's full canvases (one process,
     or the whole batch under ``mesh``) in each of PARALLEL_DECODE_MODES
     ("int8": greedy with int8 cross and self caches; sampling from a
-    generator seeded with PARALLEL_SAMPLE_SEED): per mode (tokens,
-    synchronised seconds, flash launches)."""
+    generator seeded with PARALLEL_SAMPLE_SEED): per mode (tokens, flash
+    launches)."""
     from texocr_tpu_torch.models.generate import mesh_generate
-    from texocr_tpu_torch.ops import flash_attention as fa
 
-    n, steps = PARALLEL_DECODE
-    images = torch.from_numpy(parallel_batch(99, n)[0]).cuda()
+    n_images, steps = PARALLEL_DECODE
+    images = torch.from_numpy(parallel_batch(99, n_images)[0]).cuda()
     models = {"plain": flagship_model("float32", mesh),
               "int8": flagship_model("float32", mesh, kv_quant="int8", self_kv_quant="int8")}
     out = {}
     for mode in PARALLEL_DECODE_MODES:
         model = models["int8" if mode == "int8" else "plain"]
         gen = torch.Generator(device="cuda").manual_seed(PARALLEL_SAMPLE_SEED)
-        fa.flash_attention.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tokens = mesh_generate(model, images, mesh, max_len=steps,
-                               mode="greedy" if mode == "int8" else mode, generator=gen,
-                               temp=0.3, beam_size=BEAM)
-        torch.cuda.synchronize()
-        out[mode] = (tokens.cpu().numpy(), time.perf_counter() - t0,
-                     fa.flash_attention.launches)
+        with counted() as n:
+            tokens = mesh_generate(model, images, mesh, max_len=steps,
+                                   mode="greedy" if mode == "int8" else mode, generator=gen,
+                                   temp=0.3, beam_size=BEAM)
+        out[mode] = (tokens.cpu().numpy(), n["flash"])
     del models
     torch.cuda.empty_cache()
     return out
 
 
-def parallel_rank(logdir) -> dict:
+def parallel_rank() -> dict:
     """Phase 16b on one of two ranks sharing cuda:0 over gloo: {data: 2} and
     {model: 2} training steps, the kernel at this rank's shapes against its
     plain version, and the float32 decodes under {model: 2} and {data: 2}."""
@@ -3073,7 +2299,7 @@ def parallel_rank(logdir) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(16 + dist.get_rank())
     out = {"kernels": []}
     for axis in PARALLEL_BATCHES:
-        out[axis] = parallel_steps(axis, True, logdir)
+        out[axis] = parallel_steps(axis, True)
         dist.barrier()
     for b, h, n, dtype in RANK_SHAPES[:4]:
         q, k, v = (split_heads(gen, b, h, n, 64, dtype) for _ in range(3))
@@ -3085,23 +2311,17 @@ def parallel_rank(logdir) -> dict:
     return out
 
 
-def parallel_phase(fa, trained) -> dict:
+def parallel_phase(trained) -> dict:
     """Phase 16: parallelism on the card (see the module docstring). These
     are correctness phases: gloo stages CUDA tensors through the host and
-    the two ranks of (b) time-share one card, so no time here is a data- or
-    tensor-parallel speed."""
+    the two ranks of (b) time-share one card."""
     from texocr_tpu_torch.parallel.dryrun import dryrun_multichip, spawn
 
-    t = {}
-    t0 = time.perf_counter()
-    world1 = world1_phase(fa, trained)
-    t["a"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
+    world1 = world1_phase(trained)
     single = {axis: parallel_steps(axis, False) for axis in PARALLEL_BATCHES}
     single_decode = parallel_decode()
     with tempfile.TemporaryDirectory() as tmp:
-        ranks = spawn(parallel_rank, 2, (tmp,), store_dir=tmp)
+        ranks = spawn(parallel_rank, 2, (), store_dir=tmp)
     failed = []
     for axis, batch in PARALLEL_BATCHES.items():
         want = single[axis]["losses"]
@@ -3112,10 +2332,7 @@ def parallel_phase(fa, trained) -> dict:
             log(f"[parallel] (b) rank {rank} of 2 on cuda:0 over gloo, {{{axis}: 2}} at global "
                 f"batch {batch}: losses {got['losses']} against one process's {want}, max "
                 f"relative difference {err:.3e} (tol {PARALLEL_BF16_RTOL:g}); flash launches "
-                f"per step {got['launches']}; step s {got['step_s']} (one process: "
-                f"{single[axis]['step_s']}); peak memory {got['peak_memory_gb']:.2f} GB (one "
-                f"process: {single[axis]['peak_memory_gb']:.2f}); profiled step "
-                + json.dumps(got["profile"]) + f" {'ok' if ok else 'FAIL'}")
+                f"per step {got['launches']} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failed.append(f"{axis} rank {rank}")
     for rank, r in enumerate(ranks):
@@ -3125,47 +2342,36 @@ def parallel_phase(fa, trained) -> dict:
             if not row["ok"]:
                 failed.append(f"kernel {row['shape']} rank {rank}")
         for axis, decodes in r["decode"].items():
-            for mode, (tokens, decode_s, launches) in decodes.items():
-                want, want_s, _ = single_decode[mode]
-                same = np.array_equal(tokens, want)
+            for mode, (tokens, launches) in decodes.items():
+                same = np.array_equal(tokens, single_decode[mode][0])
                 log(f"[parallel] (b) rank {rank}: float32 {mode} decode of {PARALLEL_DECODE[0]} "
                     f"full canvases x {PARALLEL_DECODE[1]} steps under {{{axis}: 2}}: tokens "
-                    f"{'equal to' if same else 'DIFFER from'} one process's; {decode_s:.2f} s "
-                    f"(one process: {want_s:.2f} s); flash launches {launches} for 1 encode")
+                    f"{'equal to' if same else 'DIFFER from'} one process's; flash launches "
+                    f"{launches} for 1 encode")
                 if not (same and launches == N_LAYERS):
                     failed.append(f"{mode} decode {axis} rank {rank}")
-    t["b"] = time.perf_counter() - t0
     if failed:
         raise AssertionError(f"phase 16b failed: {failed}")
 
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         dry = dryrun_multichip(2, device="cuda", store_dir=tmp)
-    t["c"] = time.perf_counter() - t0
-    log(f"[parallel] (c) dryrun_multichip(2) on cuda:0: loss {dry['loss']:.4f}; seconds per "
-        f"sub-phase " + json.dumps(t) + " (correctness phases: gloo stages CUDA tensors "
-        "through the host and the ranks time-share one card; not a parallel speed)")
-    return {"world1": world1, "single": single, "ranks": [
-        {axis: r[axis] for axis in PARALLEL_BATCHES} for r in ranks],
-        "launches": {"a": world1["launches"],
-                     **{f"b {axis} rank {i}": sum(r[axis]["launches"])
-                        for i, r in enumerate(ranks) for axis in PARALLEL_BATCHES},
-                     **{f"b decode {axis} {mode} rank {i}": d[2]
-                        for i, r in enumerate(ranks) for axis, decodes in r["decode"].items()
-                        for mode, d in decodes.items()}},
-        "seconds": t}
+    log(f"[parallel] (c) dryrun_multichip(2) on cuda:0: loss {dry['loss']:.4f}")
+    return {"launches": {"a": world1["launches"],
+                         **{f"b {axis} rank {i}": sum(r[axis]["launches"])
+                            for i, r in enumerate(ranks) for axis in PARALLEL_BATCHES},
+                         **{f"b decode {axis} {mode} rank {i}": d[1]
+                            for i, r in enumerate(ranks) for axis, decodes in r["decode"].items()
+                            for mode, d in decodes.items()}}}
 
 
 DEMO_N = 640  # phase 17's --realistic demo build: 512 train, 96 test, 32 val rows
 DEMO_SEED = 13
 DEMO_BATCH = 32  # the curriculum's batch, for training and evaluation
-DEMO_SHAPE = (DEMO_BATCH, 8, 631, 64)  # its encoder self-attention on full canvases
 DEMO_STAGE = "D"  # the curriculum stage whose training arguments phase 17 cuts down
 DEMO_CUTS = ["--epochs", "2", "--eval_batches", "2", "--save_freq", "1", "--val_freq", "1"]
 DEMO_STAGE_W = ["--remat", "--pack_bits", "4", "--host_val"]  # stage W's knobs
 DEMO_TORN = 40  # train images deleted from the build's tail before the partial pickles
 DEMO_HOLDOUT = 64  # pickle_partial_typeset's --holdout on the torn build
-REMAT_TIMED = 8  # synchronised fixed-batch steps per remat setting
 METRICS_KEYS = {"args", "final_train_loss", "token_acc", "exact_match", "edit_similarity",
                 "batches"}  # the keys of the JAX tool's --metrics_out
 
@@ -3219,25 +2425,20 @@ def build_demo(rng, root) -> dict:
     log(f"[tools] make_demo_dataset: importable {found}; " + "; ".join(notes)
         + "; the phase draws each image's ink")
 
-    t0 = time.perf_counter()
     eqs = mdd.demo_equations(np.random.default_rng(DEMO_SEED), DEMO_N, realistic=True)
     splits = mdd.split_equations(eqs)
     for split, labels in splits.items():
         shapes = iter([demo_canvas(split, i) for i in range(len(labels))])
         mdd.write_split(os.path.join(build, split), labels,
                         lambda eq, r: canvas(r, *next(shapes)), rng)
-    write_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     sets = mdd.pickle_splits(build, splits, DEMO_N)
-    pickle_s = time.perf_counter() - t0
     rows = {split: len(ds) for split, ds in sets.items()}
     if rows != {split: len(labels) for split, labels in splits.items()}:
         raise AssertionError(f"pickled rows {rows}")
     buckets = {split: {f"{h}x{w}": len(i) for (w, h), i in ds.sizes.items()}
                for split, ds in sets.items()}
     log(f"[tools] demo build: {DEMO_N} --realistic equations (seed {DEMO_SEED}), rows {rows}, "
-        f"buckets {buckets}, max_seq_len {sets['train'].max_seq_len}; written in {write_s:.2f} "
-        f"s, pickled in {pickle_s:.2f} s")
+        f"buckets {buckets}, max_seq_len {sets['train'].max_seq_len}")
 
     images = os.path.join(build, "train", "images")
     left = rows["train"] - DEMO_TORN
@@ -3259,20 +2460,16 @@ def build_demo(rng, root) -> dict:
         f"for row {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("pickle_partial_typeset disagrees with the build")
-    return {"build": build, "rows": rows, "buckets": buckets, "write_s": write_s,
-            "pickle_s": pickle_s, "partial_take": took}
+    return {"build": build, "rows": rows}
 
 
-def remat_steps(fa, config, train_set) -> dict:
+def remat_steps(config, train_set) -> dict:
     """Phase 17 (b): one fixed full-canvas batch of DEMO_BATCH through the
     flagship from the same weights, without and with remat: the first two
-    steps' losses, the flash launches of each step, the synchronised step
-    time (median of REMAT_TIMED), the peak memory and a profiled step (device
-    time, kernels, busy share) of each."""
+    steps' losses and each step's flash and backward launches."""
     from texocr_tpu_torch.config import ModelConfig, with_defaults
     from texocr_tpu_torch.data.dataset import create_dataloader
     from texocr_tpu_torch.models import OCRModel
-    from texocr_tpu_torch.telemetry import step_timer
     from texocr_tpu_torch.training.optimizers import get_optimizer
     from texocr_tpu_torch.training.train_step import (
         create_train_state,
@@ -3293,93 +2490,48 @@ def remat_steps(fa, config, train_set) -> dict:
         state = create_train_state(
             model, get_optimizer("Adam", config["optimizer_args"], model.parameters()),
             config["seed"])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses, launches, backward, times = [], [], [], []
-        for i in range(2 + REMAT_TIMED):
-            fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
-            timed = {}
-            with step_timer(timed, sync=images):
-                loss = train_step(state, images, labels)["loss"]
-            launches.append(fa.flash_attention.launches)
-            backward.append(fa.flash_attention_backward.launches)
-            (losses if i < 2 else times).append(loss.item() if i < 2 else timed["seconds"])
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        prof = device_kernels(lambda: train_step(state, images, labels))
-        out["remat" if remat else "plain"] = {
-            "losses": losses, "launches_per_step": launches,
-            "backward_launches_per_step": backward, "step_s": float(np.median(times)),
-            "peak_memory_gb": peak_gb,
-            "profile": {**prof, "device_busy_share": prof["device_s"] / prof["profiled_wall_s"]}}
-        log(f"[tools] profiled step {'with' if remat else 'without'} remat: "
-            + json.dumps(out["remat" if remat else "plain"]["profile"]))
+        row = out["remat" if remat else "plain"] = {
+            "losses": [], "launches_per_step": [], "backward_launches_per_step": []}
+        for _ in range(2):
+            with counted() as n:
+                row["losses"].append(train_step(state, images, labels)["loss"].item())
+            row["launches_per_step"].append(n["flash"])
+            row["backward_launches_per_step"].append(n["backward"])
         del model, state
         torch.cuda.empty_cache()
     return out
 
 
-def demo_train_run(fa, argv, root, name) -> dict:
-    """Runs demo_train's main on ``argv`` with its train_model, test_model and
-    graph engines wrapped to record, per run, the flash launches, seconds
-    and peak memory of training (with the epochs' records) and of the test
-    split's decode (each key's capture and each replay)."""
+def demo_train_run(argv, root, name) -> dict:
+    """Runs demo_train's main on ``argv`` with its train_model and test_model
+    wrapped to count, per run, the flash launches and steps of training
+    (with the epochs' records) and the flash launches and graph keys of the
+    test split's decode."""
     from texocr_tpu_torch.evaluation import evaluate
     from texocr_tpu_torch.tools import demo_train
     from texocr_tpu_torch.training import loop
 
-    rec = {"capture_s": [], "replay_s": [], "keys": []}
+    rec = {}
     metrics = os.path.join(root, f"{name}.jsonl")
-    originals = loop.train_model, evaluate.test_model, evaluate.graph_engines
+    originals = loop.train_model, evaluate.test_model
 
     def train_model(*args, **kwargs):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention.launches = 0
-        t0 = time.perf_counter()
-        model, state, history = originals[0](*args, metrics_path=metrics, **kwargs)
-        torch.cuda.synchronize()
-        rec.update(train_s=time.perf_counter() - t0, train_launches=fa.flash_attention.launches,
-                   train_peak_gb=torch.cuda.max_memory_allocated() / 1e9, steps=state.step)
+        with counted() as n:
+            model, state, history = originals[0](*args, metrics_path=metrics, **kwargs)
+        rec.update(train_launches=n["flash"], steps=state.step)
         return model, state, history
 
     def test_model(*args, **kwargs):
-        fa.flash_attention.launches = 0
-        t0 = time.perf_counter()
-        got = originals[1](*args, **kwargs)
-        rec.update(test_s=time.perf_counter() - t0, test_launches=fa.flash_attention.launches)
+        with counted() as n:
+            got = originals[1](*args, **kwargs)
+        rec.update(test_launches=n["flash"], keys=n["keys"])
         return got
 
-    def graph_engines(model):
-        build = originals[2](model)
-
-        def factory(batch, canvas_hw, max_len, mode, beam_size):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            graphed = build(batch, canvas_hw, max_len, mode, beam_size)
-            torch.cuda.synchronize()
-            rec["capture_s"].append(time.perf_counter() - t0)
-            rec["keys"].append([batch, *canvas_hw, max_len, mode])
-
-            def replay(images):
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                tokens = graphed(images)
-                torch.cuda.synchronize()
-                rec["replay_s"].append(time.perf_counter() - t1)
-                return tokens
-
-            return replay
-
-        return factory
-
-    loop.train_model, evaluate.test_model, evaluate.graph_engines = (
-        train_model, test_model, graph_engines)
+    loop.train_model, evaluate.test_model = train_model, test_model
     try:
-        t0 = time.perf_counter()
         demo_train.main(argv)
-        rec["run_s"] = time.perf_counter() - t0
     finally:
-        loop.train_model, evaluate.test_model, evaluate.graph_engines = originals
+        loop.train_model, evaluate.test_model = originals
     with open(metrics) as f:
         records = [json.loads(line) for line in f]
     rec["epochs"] = [r for r in records if r["event"] == "train_epoch"]
@@ -3389,41 +2541,12 @@ def demo_train_run(fa, argv, root, name) -> dict:
     return rec
 
 
-def time_demo_shape(fa, gen) -> dict:
-    """Phase 3 at DEMO_SHAPE (bfloat16, split-head, CUDA-graph replays,
-    L2-warm and cold): the kernel against its plain version, and its time
-    beside the bound, the plain version and scaled_dot_product_attention."""
-    b, h, n, dh = DEMO_SHAPE
-    q, k, v = (split_heads(gen, b, h, n, dh, torch.bfloat16) for _ in range(3))
-    scale = dh ** -0.5
-    err, tol, note = hold_bf16(fa, fa.flash_attention(q, k, v, scale=scale),
-                               fa.flash_attention_plain(q, k, v, scale=scale), q, k, v, scale)
-    log(f"[tools] flash_attention bf16 {DEMO_SHAPE} split-head, kernel vs plain: {note} "
-        f"{'ok' if err <= tol else 'FAIL'}")
-    if not err <= tol:
-        raise AssertionError("flash attention kernel disagrees with its plain version")
-    bound, bound_by = attention_bound_ms(q, k)
-    calls = {"ms": lambda: fa.flash_attention(q, k, v, scale=scale),
-             "plain_ms": lambda: fa.flash_attention_plain(q, k, v, scale=scale),
-             "library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
-                 q, k, v, scale=scale)}
-    row = {"shape": list(DEMO_SHAPE), "max_abs_err": err, "bound_ms": bound,
-           "bound_by": bound_by}
-    for key, fn in calls.items():
-        iters = 5 if key == "plain_ms" else 30
-        row[key] = time_ms(fn, iters=iters)
-        row[key + "_l2_cold"] = time_ms(fn, iters=iters, cold=True)
-    log(f"[tools] flash_attention bf16 {DEMO_SHAPE} split-head timing: " + json.dumps(row))
-    return row
-
-
-def tools_phase(fa, rng, gen) -> dict:
+def tools_phase(rng) -> dict:
     """Phase 17: the data tools and demo_train on the card (see the module
     docstring)."""
     from texocr_tpu_torch.data.dataset import ImageDataset
     from texocr_tpu_torch.tools import demo_train, train_curriculum
 
-    card = card_line()
     out = {}
     with tempfile.TemporaryDirectory() as root:
         out["build"] = build = build_demo(rng, root)
@@ -3441,7 +2564,7 @@ def tools_phase(fa, rng, gen) -> dict:
         }
         train_set = ImageDataset.load(os.path.join(build["build"], "train", "trainset.pkl"))
         out["steps"] = steps = remat_steps(
-            fa, demo_train.build_config(demo_train.parse_args(argvs["plain"])), train_set)
+            demo_train.build_config(demo_train.parse_args(argvs["plain"])), train_set)
         rel = max(abs(a - b) / abs(b) for a, b in zip(steps["remat"]["losses"],
                                                       steps["plain"]["losses"]))
         per_step = {k: sorted(set(r["launches_per_step"])) for k, r in steps.items()}
@@ -3453,40 +2576,31 @@ def tools_phase(fa, rng, gen) -> dict:
             f"{steps['remat']['losses']}, max relative difference {rel:.3e} (tol "
             f"{BF16_FLOOR:g}); flash launches per step {per_step} (expected {N_LAYERS} and "
             f"{2 * N_LAYERS}: remat recomputes each encoder sub-layer's forward), backward "
-            f"launches {backward} (expected {N_LAYERS} in both); step s "
-            f"{steps['plain']['step_s']:.4f} without, {steps['remat']['step_s']:.4f} with "
-            f"remat; peak memory {steps['plain']['peak_memory_gb']:.2f} GB without, "
-            f"{steps['remat']['peak_memory_gb']:.2f} GB with; {card} {'ok' if ok else 'FAIL'}")
+            f"launches {backward} (expected {N_LAYERS} in both) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("remat changes the loss or the launches per step")
 
         for name, argv in argvs.items():
-            run = demo_train_run(fa, argv, root, name)
+            run = demo_train_run(argv, root, name)
             expected = 2 * N_LAYERS if name == "remat" else N_LAYERS
             train_per_step = (run["train_launches"] - N_LAYERS * run["val_events"]) / run["steps"]
-            decodes = run["metrics"]["batches"] + len(run["keys"])
+            decodes = run["metrics"]["batches"] + run["keys"]
             losses = [r["loss"] for r in run["epochs"]]
-            step_s = [r["seconds"] / r["steps"] for r in run["epochs"]]
             ok = (train_per_step == expected and run["test_launches"] == N_LAYERS * decodes
                   and set(run["metrics"]) == METRICS_KEYS and run["metrics"]["batches"] == 2
                   and np.isfinite(losses).all() and len(losses) == 2)
             log(f"[tools] demo_train {name} ({' '.join(argv[argv.index('--device') + 2:])}): "
-                f"{run['steps']} train steps, epoch losses {losses}, epoch s "
-                f"{[round(r['seconds'], 3) for r in run['epochs']]} ({np.median(step_s):.4f} s "
-                f"a step, median over epochs, data included), train_model {run['train_s']:.1f} "
-                f"s, peak memory {run['train_peak_gb']:.2f} GB; flash launches {run['train_launches']} "
-                f"in training ({train_per_step:g} a train step with {run['val_events']} val "
-                f"steps, expected {expected}), {run['test_launches']} in test_model for "
-                f"{decodes} encodes; test split keys {run['keys']}, capture s "
-                f"{[round(t, 3) for t in run['capture_s']]}, replay s "
-                f"{[round(t, 4) for t in run['replay_s']]}, test_model {run['test_s']:.1f} s; "
-                f"metrics keys {sorted(run['metrics'])}; {card} {'ok' if ok else 'FAIL'}")
+                f"{run['steps']} train steps, epoch losses {losses}; flash launches "
+                f"{run['train_launches']} in training ({train_per_step:g} a train step with "
+                f"{run['val_events']} val steps, expected {expected}), {run['test_launches']} "
+                f"in test_model for {decodes} encodes ({run['keys']} keys captured); metrics "
+                f"keys {sorted(run['metrics'])} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"demo_train {name} failed its checks")
-            run["step_s_median"] = float(np.median(step_s))
-            run["train_launches_per_step"] = train_per_step
-            run["encodes"] = decodes
-            out[name] = run
+            out[name] = {"train_launches": run["train_launches"],
+                         "train_launches_per_step": train_per_step, "steps": run["steps"],
+                         "val_events": run["val_events"], "test_launches": run["test_launches"],
+                         "encodes": decodes}
 
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -3507,7 +2621,6 @@ def tools_phase(fa, rng, gen) -> dict:
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("train_curriculum's commands do not chain the port's tools")
-    out["shape"] = time_demo_shape(fa, gen)
     return out
 
 
@@ -3544,7 +2657,7 @@ def tree_mismatches(got, want) -> list:
     return [k for k in a if leaf_bits(a[k]) != leaf_bits(b[k])]
 
 
-def orbax_phase(fa, trained, device="cuda") -> dict:
+def orbax_phase(trained, device="cuda") -> dict:
     """Phase 18: the JAX package's orbax checkpoints on the card's
     installation (see the module docstring). ``trained``: phase 8's result,
     whose checkpoints it converts."""
@@ -3581,27 +2694,13 @@ def orbax_phase(fa, trained, device="cuda") -> dict:
     keys = OCRModel(ModelConfig.from_dict(model_config), device="meta").parameter_keys()
     work = os.path.dirname(config["save_dir"])
     jax_dir = os.path.join(work, "jax_layout")
-    t0 = time.perf_counter()
     params = convert.jax_from_state_dict(state["model"])
     opt_state = convert.jax_opt_state(state["optimizer"], keys, config["optimizer"],
                                       config["optimizer_args"])
-    to_jax_s = time.perf_counter() - t0
-    mb = {name: sum(np.asarray(v).nbytes for _, v in leaves(tree) if v is not None) / 1e6
-          for name, tree in (("params", params), ("opt_state", opt_state))}
-    t0 = time.perf_counter()
     jax_ckpt = orbax.save_checkpoint(jax_dir, state["epoch"], params, opt_state,
                                      extra={"step": state["step"]})
-    write_s = time.perf_counter() - t0
-    disk_mb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(jax_ckpt)
-                  for f in fs) / 1e6
     del params, opt_state
-    t0 = time.perf_counter()
-    tree = orbax.load_checkpoint(jax_ckpt)
-    read_s = time.perf_counter() - t0
-    del tree
-    t0 = time.perf_counter()
     back = io.load_checkpoint(jax_ckpt)
-    load_s = time.perf_counter() - t0
     mesh = create_mesh()
     numbered = shard_optimizer_state(back["optimizer"], keys, mesh)["optimizer"]["state"]
     saved = state["optimizer"]["optimizer"]["state"]
@@ -3609,12 +2708,8 @@ def orbax_phase(fa, trained, device="cuda") -> dict:
            + tree_mismatches({str(k): v for k, v in numbered.items()},
                              {str(k): v for k, v in saved.items()})
            + [k for k in ("epoch", "step") if back[k] != state[k]])
-    total_mb = mb["params"] + mb["opt_state"]
-    log(f"[orbax] (b) {src} (state.pt) in the JAX layout: params {mb['params']:.1f} MB, Adam "
-        f"moments {mb['opt_state']:.1f} MB ({disk_mb:.1f} MB on disk); conversion "
-        f"{to_jax_s:.3f} s, orbax write {write_s:.3f} s ({total_mb / write_s:.1f} MB/s), read "
-        f"{read_s:.3f} s ({total_mb / read_s:.1f} MB/s), read and converted to the port's "
-        f"payload {load_s:.3f} s; "
+    log(f"[orbax] (b) {src} (state.pt) in the JAX layout, written by orbax.save_checkpoint "
+        f"and read back through io.load_checkpoint: "
         + ("bit-equal to state.pt (model, moments, steps, epoch, step)" if not bad
            else f"DIFFER at {bad[:5]}"))
     if bad:
@@ -3630,24 +2725,20 @@ def orbax_phase(fa, trained, device="cuda") -> dict:
         metrics = os.path.join(work, f"metrics_{name.replace(' ', '_')}.jsonl")
         run = dict(config, save_dir=save_dir, resume=True, save_checkpoint=False,
                    n_epochs=TRAIN_EPOCHS + 1)
-        fa.flash_attention.launches = 0
-        t0 = time.perf_counter()
-        _, st, history = train_model(train_set, val_set, run, verbose=False, device=device,
-                                     metrics_path=metrics)
-        seconds = time.perf_counter() - t0
-        launches = fa.flash_attention.launches
+        with counted() as n:
+            _, st, history = train_model(train_set, val_set, run, verbose=False, device=device,
+                                         metrics_path=metrics)
+        launches = n["flash"]
         with open(metrics) as f:
             records = [json.loads(line) for line in f]
         epoch = next(r for r in records if r["event"] == "train_epoch")
         epoch["steps"] = int(epoch["steps"])
         val = [r["loss"] for r in records if r["event"] == "val"]
         n_val = len(val)
-        resumed[name] = {"losses": history, "val": val, "seconds": seconds,
-                         "launches": launches, "steps": epoch["steps"], "step": st.step,
-                         "step_s": epoch["seconds"] / epoch["steps"]}
+        resumed[name] = {"losses": history, "val": val, "launches": launches,
+                         "steps": epoch["steps"], "step": st.step}
         log(f"[orbax] resume from the {name}: epoch {TRAIN_EPOCHS + 1} of {epoch['steps']} "
-            f"steps from step {st.step - epoch['steps']}, loss {history}, val {val}, "
-            f"{seconds:.2f} s ({resumed[name]['step_s']:.4f} s a step over the epoch); flash "
+            f"steps from step {st.step - epoch['steps']}, loss {history}, val {val}; flash "
             f"launches {launches}")
         if launches != N_LAYERS * (epoch["steps"] + n_val):
             raise AssertionError(f"resume from the {name}: {launches} flash launches for "
@@ -3677,19 +2768,14 @@ def orbax_phase(fa, trained, device="cuda") -> dict:
                          "tokenizer_path": DEFAULT_VOCAB_PATH, "model_path": path},
                         device=device)
         engine.generate_batch(batch, max_len=DECODE_STEPS)  # the key's capture
-        fa.flash_attention.launches = 0
-        t0 = time.perf_counter()
-        tokens = engine.generate_batch(batch, max_len=DECODE_STEPS)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        served[name] = {"tokens": tokens.cpu().numpy(), "seconds": time.perf_counter() - t0,
-                        "launches": fa.flash_attention.launches}
+        with counted() as n:
+            tokens = engine.generate_batch(batch, max_len=DECODE_STEPS)
+        served[name] = {"tokens": tokens.cpu().numpy(), "launches": n["flash"]}
         del engine
         torch.cuda.empty_cache()
         log(f"[orbax] serve from the {name}: batch {BATCH} x {tokens.shape[1]} tokens (max_len "
-            f"{DECODE_STEPS} within the checkpoint's positional table) "
-            f"{served[name]['seconds']:.3f} s (graph replay), flash launches "
-            f"{served[name]['launches']}")
+            f"{DECODE_STEPS} within the checkpoint's positional table) through the graphs, "
+            f"flash launches {served[name]['launches']}")
         if served[name]["launches"] != N_LAYERS:
             raise AssertionError(f"serve from the {name}: {served[name]['launches']} flash "
                                  "launches for one encode")
@@ -3698,15 +2784,9 @@ def orbax_phase(fa, trained, device="cuda") -> dict:
         f" state.pt's ({served['state.pt']['tokens'].shape})")
     if not equal:
         raise AssertionError("TexOCR from the JAX layout gives other tokens than from state.pt")
-    return {"fixture_leaves": n_leaves, "params_mb": mb["params"],
-            "opt_state_mb": mb["opt_state"], "disk_mb": disk_mb, "to_jax_s": to_jax_s,
-            "write_s": write_s, "read_s": read_s, "load_s": load_s,
-            "write_mb_s": total_mb / write_s, "read_mb_s": total_mb / read_s,
-            "resume": {k: {x: v[x] for x in ("losses", "val", "seconds", "launches", "steps",
-                                             "step_s")} for k, v in resumed.items()},
-            "resume_bit_equal": same, "resume_max_rel": rel,
-            "serve": {k: {"seconds": v["seconds"], "launches": v["launches"]}
-                      for k, v in served.items()}}
+    return {"resume": {k: {"launches": v["launches"], "steps": v["steps"]}
+                       for k, v in resumed.items()},
+            "serve": {k: {"launches": v["launches"]} for k, v in served.items()}}
 
 
 def build_phase(fa) -> None:
@@ -3716,9 +2796,7 @@ def build_phase(fa) -> None:
     instantiation of HGMMA holds its count."""
     from texocr_tpu_torch.ops import build
 
-    t0 = time.perf_counter()
     library, build_log = build.build(fa.SOURCE)
-    log(f"[build] {fa.SOURCE} built in {time.perf_counter() - t0:.1f} s")
     for line in build_log.splitlines():
         if any(word in line for word in ("entry function", "registers", "spill", "warning",
                                          "wgmma")):
@@ -3743,12 +2821,9 @@ def main() -> int:
         return 1
     from texocr_tpu_torch.ops import flash_attention as fa
 
-    card = card_line()
-    log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[device] {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    build_phase(fa)
-    phase_s = {"build": time.perf_counter() - t0}
+    phase_s = {}
     launch_log = LaunchLog(fa)
 
     def phase(name, fn, *args):
@@ -3758,40 +2833,34 @@ def main() -> int:
         phase_s[name] = time.perf_counter() - t
         return out
 
+    phase("build", build_phase, fa)
     gen = torch.Generator(device="cuda").manual_seed(0)
     errors = phase("kernels", check_flash_kernel, fa, gen)
     timings = phase("kernel timing", time_flash, fa, gen)
-    rank_rows = phase("rank shape timing", time_rank_shapes, fa, gen)
     backward = phase("flash backward", flash_backward_phase, fa, gen)
     decoded = phase("decode attention", decode_attention_phase)
     routed = phase("moe experts", moe_experts_phase)
-    f32_launches = phase("golden", check_golden, fa)
+    f32_launches = phase("golden", check_golden)
     rng = np.random.default_rng(0)
-    served = phase("serve", serve, fa, rng)
-    profiled = phase("profile", profile_serving, served["engine"], served["batch"])
-    graphed = phase("graphs", graphs_phase, fa, served["engine"], served["batch"], profiled)
-    del served["engine"]
+    served = phase("serve", serve, rng)
+    batch = served.pop("batch")
+    paths = {f"graphs {mode}": r
+             for mode, r in phase("graphs", graphs_phase, served.pop("engine"), batch).items()}
     encode_err = phase("encoder", check_encoder_paths, rng)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    trained = phase("train", train, fa, rng, os.path.join(work, "phase8"))
-    train_row = phase("train timing", time_train_attention, fa, gen)
-    resident = phase("device data", device_data_phase, fa, rng)
-    paths = {"int8": phase("int8", int8_phase, fa, served["batch"]),
-             "sample": phase("sample", sample_phase, fa, served["batch"]),
-             "beam": phase("beam", beam_phase, fa, served["batch"]),
-             "http": phase("http", http_phase, fa, rng)}
-    evaluated = phase("eval", eval_phase, fa, rng)
-    paths.update({f"eval {mode}": r for mode, r in evaluated.items()})
-    variants = phase("variants", variants_phase, fa, served["batch"], rng, encode_err)
-    paths.update({f"variants {name}": {"launches": r["launches"], "encodes": r["encodes"]}
-                  for name, r in variants.items()})
-    paths.update({f"graphs {mode}": graphed[mode] for mode in ("greedy", "int8", "beam", "sample")})
-    data = phase("data", data_phase, fa, rng)
-    paths.update({f"data {kind}": {"launches": data[kind]["launches"],
-                                   "encodes": data[kind]["encodes"]} for kind in ("eager", "lazy")})
-    parallel = phase("parallel", parallel_phase, fa, trained)
-    tools = phase("tools", tools_phase, fa, rng, gen)
-    interchange = phase("orbax", orbax_phase, fa, trained)
+    trained = phase("train", train, rng, os.path.join(work, "phase8"))
+    resident = phase("device data", device_data_phase, rng)
+    paths.update({"int8": phase("int8", int8_phase, batch),
+                  "sample": phase("sample", sample_phase, batch),
+                  "beam": phase("beam", beam_phase, batch),
+                  "http": phase("http", http_phase, rng)})
+    paths.update({f"eval {mode}": r for mode, r in phase("eval", eval_phase, rng).items()})
+    paths.update({f"variants {name}": r for name, r in
+                  phase("variants", variants_phase, batch, rng, encode_err).items()})
+    paths.update({f"data {kind}": r for kind, r in phase("data", data_phase, rng).items()})
+    parallel = phase("parallel", parallel_phase, trained)
+    tools = phase("tools", tools_phase, rng)
+    interchange = phase("orbax", orbax_phase, trained)
     shutil.rmtree(work)
     launched = phase("launched shapes", check_launched, fa, gen, launch_log)
     log("[time] seconds per phase " + json.dumps(phase_s))
@@ -3815,33 +2884,27 @@ def main() -> int:
             launch_signatures=launched.get(str(dtype)[6:], {}),
             max_abs_err=errors[dtype],
             **{key: serving_shape[key] for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_kernels",
                 "ms_l2_cold", "plain_ms_l2_cold", "library_ms_l2_cold")},
             shapes=timings[dtype],
         ))
-    kernels[0].update(train_launches_per_step=trained["launches_per_step"],
-                      train_launches=trained["launches"], train_shape=train_row,
-                      device_data_launches=resident["launches"],
-                      device_data_launches_per_step=resident["launches_per_step"],
-                      launches_per_path={name: {"launches": r["launches"], "encodes": r["encodes"]}
-                                         for name, r in paths.items()},
-                      rank_shapes=rank_rows,
-                      parallel_launches={k: v for k, v in parallel["launches"].items()
-                                         if "decode" not in k})
-    kernels[0].update(tools_launches={name: {
-        key: tools[name][key] for key in ("train_launches", "train_launches_per_step", "steps",
-                                          "val_events", "test_launches", "encodes")}
-        for name in ("plain", "remat")},
+    kernels[0].update(
+        train_launches=trained["launches"], train_launches_per_step=trained["launches_per_step"],
+        device_data_launches=resident["launches"],
+        device_data_launches_per_step=resident["launches_per_step"],
+        launches_per_path={"serve": {"launches": served["launches"],
+                                     "encodes": served["encodes"]}, **paths},
+        parallel_launches={k: v for k, v in parallel["launches"].items() if "decode" not in k},
+        tools_launches={name: tools[name] for name in ("plain", "remat")},
         tools_fixed_batch_launches_per_step={name: r["launches_per_step"]
                                              for name, r in tools["steps"].items()},
-        tools_shape=tools["shape"])
+        orbax_launches={
+            **{f"resume from the {k}": {"launches": v["launches"], "train_steps": v["steps"]}
+               for k, v in interchange["resume"].items()},
+            **{f"serve from the {k}": {"launches": v["launches"], "encodes": 1}
+               for k, v in interchange["serve"].items()}})
     kernels[1].update(parallel_launches={k: v for k, v in parallel["launches"].items()
                                          if "decode" in k})
-    kernels[0].update(orbax_launches={
-        **{f"resume from the {k}": {"launches": v["launches"], "train_steps": v["steps"]}
-           for k, v in interchange["resume"].items()},
-        **{f"serve from the {k}": {"launches": v["launches"], "encodes": 1}
-           for k, v in interchange["serve"].items()}})
     kernels.append(dict(
         name="flash_attention_backward_bf16",
         route="cuda",
@@ -3872,55 +2935,11 @@ def main() -> int:
         source="texocr_tpu_torch/ops/moe_experts.py",
         replaces=None,  # the JAX package has no expert layer
         launches={"kimivl.batch path (TexOCR.generate_batch, 256 x 256 steps), a call":
-                  routed["main path"]["calls"][-1]["launches"]},
+                  routed["main path"]["launches"],
+                  "3-layer graphed call": routed["graphs"]["launches_per_call"]},
         calls={k: v for k, v in routed.items() if k not in ("graphs", "main path")},
     ))
     log(json.dumps({"kernels": kernels}))
-    log(f"[serve] median per-request s {served['request_s']}, batch img/s "
-        f"{BATCH / served['batch_s']} on {card}")
-    log(f"[decode] batch {BATCH} x {DECODE_STEPS} tokens on {card}, wall s eager and graph: "
-        + json.dumps({mode: [graphed[mode]["eager"]["wall_s"], graphed[mode]["graph"]["wall_s"]]
-                      for mode in ("greedy", "int8", "sample", "beam")})
-        + f"; encode wall s {graphed['encode']['eager']['wall_s']} and "
-        f"{graphed['encode']['graph']['wall_s']}; http p50 {paths['http']['p50_s']} s, "
-        f"p99 {paths['http']['p99_s']} s")
-    log(f"[train] step s {trained['step_s']}, {trained['images_per_s_full']} images/s at "
-        f"(160, 1008), peak memory {trained['peak_memory_gb']} GB on {card}")
-    log(f"[device data] epoch s {[r['seconds'] for r in resident['epochs']]} against the host "
-        f"loader's {[r['seconds'] for r in resident['host_epochs']]}, step "
-        f"{resident['step_s']['median']} s, peak memory {resident['peak_memory_gb']} GB; "
-        f"50k resident rows: " + json.dumps(resident["resident"]) + f" on {card}")
-    log(f"[variants] encode and decode wall s (graph replays, batch {BATCH} x {DECODE_STEPS} "
-        f"tokens): " + json.dumps({name: [variants[name]["encode_s"], variants[name]["decode_s"]]
-                                   for name in ("patch", "glu false")})
-        + f"; no cross train step s {variants['no cross']['step_s']}, peak memory "
-        f"{variants['no cross']['peak_memory_gb']} GB; maps replay "
-        f"{variants['maps replay']['seconds']} s, tool {variants['maps tool']['seconds']} s "
-        f"on {card}")
-    log(f"[data] native encode_batch {data['tokenizer']['labels_per_s']['native']:.0f} labels/s, "
-        f"pure Python {data['tokenizer']['labels_per_s']['python']:.0f} on {host_cpu()}; "
-        f"epoch wall s eager {data['eager']['epoch_s']:.3f}, lazy {data['lazy']['epoch_s']:.3f} "
-        f"on {card}")
-    world1 = parallel["world1"]
-    log(f"[parallel] (a) NCCL world of 1: step {world1['step_s_median']} s against phase 8's "
-        f"{world1['phase8_step_s_median']} s, gradient all-reduce {world1['grad_bytes']} bytes "
-        f"in {world1['grad_all_reduce_ms']} ms; (b) peak memory per rank GB "
-        + json.dumps({axis: [r[axis]["peak_memory_gb"] for r in parallel["ranks"]]
-                      for axis in PARALLEL_BATCHES})
-        + f"; seconds {parallel['seconds']} on {card}")
-    log(f"[tools] batch {DEMO_BATCH} full-canvas step s without and with remat "
-        f"{tools['steps']['plain']['step_s']:.4f}, {tools['steps']['remat']['step_s']:.4f}, peak "
-        f"memory GB {tools['steps']['plain']['peak_memory_gb']:.2f}, "
-        f"{tools['steps']['remat']['peak_memory_gb']:.2f}; demo_train step s (epoch means) "
-        f"{tools['plain']['step_s_median']:.4f}, {tools['remat']['step_s_median']:.4f}; "
-        f"flash bf16 {DEMO_SHAPE} {tools['shape']['ms']:.5f} ms against the library's "
-        f"{tools['shape']['library_ms']:.5f} on {card}")
-    log(f"[orbax] flagship checkpoint in the JAX layout ({interchange['params_mb']:.1f} MB "
-        f"params, {interchange['opt_state_mb']:.1f} MB moments): write "
-        f"{interchange['write_s']:.3f} s ({interchange['write_mb_s']:.1f} MB/s), read "
-        f"{interchange['read_s']:.3f} s ({interchange['read_mb_s']:.1f} MB/s), resumed step s "
-        + json.dumps({k: v["step_s"] for k, v in interchange["resume"].items()})
-        + f", resume losses bit-equal {interchange['resume_bit_equal']} on {card}")
     log(card_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -32,6 +32,7 @@ machine does not have; this file does not.)
 import pytest
 import torch
 
+from texocr_tpu_torch import telemetry
 from texocr_tpu_torch.ops import decode_attention as da
 from texocr_tpu_torch.ops.bench import (DECODE_CASES, bf16_ulps, decode_case, decode_cross_inputs,
                                         decode_gaps, decode_self_inputs)
@@ -245,13 +246,17 @@ CARD_CASES = dict(DECODE_CASES, **{
 })
 
 
+def launches() -> int:
+    return telemetry.counters().get("decode_attention.launches", 0)
+
+
 def check_card_case(cuda, name):
     kind, args = CARD_CASES[name]
     gen = torch.Generator(device=cuda).manual_seed(len(name))
     _, _, kernel, plain, _ = decode_case(gen, kind, args, SCALE)
-    before = da.launches
+    before = launches()
     got = kernel()
-    assert da.launches == before + 1
+    assert launches() == before + 1
     want = plain()
     assert got.shape == want.shape and got.dtype == want.dtype
     gaps = decode_gaps(got, want)
@@ -302,9 +307,9 @@ def test_card_decoder_step_logits(cuda, quant, monkeypatch):
                 out.append(model.decoder_step(tokens[:, t], t, cache, cross_kv, t0=t0))
             return torch.stack(out)
 
-    before = da.launches
+    before = launches()
     got = run("bfloat16", plain=False)
-    assert da.launches - before == steps * 2 * 4
+    assert launches() - before == steps * 2 * 4
     want, ref = run("bfloat16", plain=True), run("float32", plain=True).float()
     assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
 

@@ -238,6 +238,17 @@ def test_the_kernels_refuse_what_they_do_not_take():
         moe_experts._check(x.bfloat16(), ids.int(), w, *bf)
 
 
+@pytest.mark.parametrize("tokens, ms, bound_by", [(256, 0.3372, "bytes"),
+                                                  (256 * 160, 4.2996, "operations")])
+def test_the_expert_bound_at_kimi_vl_widths(tokens, ms, bound_by):
+    """One expert layer's least time at decode (every expert's weights read)
+    and at prefill (the products), as phase 3c of ``chip_smoke.py`` prints it."""
+    from texocr_tpu_torch.ops.bench import moe_bound_ms
+
+    got, by = moe_bound_ms(tokens, 64, 1408, 2048, 6)
+    assert by == bound_by and got == pytest.approx(ms, rel=1e-4)
+
+
 @pytest.mark.parametrize("kind,key", [("texocr", "hidden_size"), ("mla_moe", "embed_dim")])
 def test_a_decoder_key_the_kind_does_not_read_raises(kind, key):
     cfg = json.loads(json.dumps(CONFIG))

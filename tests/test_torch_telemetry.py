@@ -307,6 +307,60 @@ def test_count_adds_and_reset_forgets():
     assert telemetry.counters() == {} and telemetry.spans() == []
 
 
+def test_deferred_holds_this_threads_counts_in_its_dict():
+    telemetry.count("a")
+    with telemetry.deferred() as held:
+        telemetry.count("a", 2)
+        telemetry.count("flash_attention.launches", 4)
+    assert held == {"a": 2, "flash_attention.launches": 4}
+    assert telemetry.counters() == {"a": 1}
+
+
+def test_deferred_leaves_other_threads_counting_directly():
+    done = threading.Event()
+
+    def other():
+        telemetry.count("batcher.rows", 3)
+        done.set()
+
+    with telemetry.deferred() as held:
+        thread = threading.Thread(target=other)
+        thread.start()
+        assert done.wait(timeout=30)
+        thread.join(timeout=30)
+    assert held == {} and telemetry.counters() == {"batcher.rows": 3}
+
+
+def test_after_deferred_counting_is_direct_again():
+    with pytest.raises(RuntimeError):
+        with telemetry.deferred():
+            telemetry.count("a")
+            raise RuntimeError("the block fails")
+    telemetry.count("a", 5)
+    assert telemetry.counters() == {"a": 5}
+
+
+def test_a_graph_replay_adds_its_captures_counts_once():
+    """``GraphedGenerate`` keeps each graph with the counts its capture held
+    back and adds them at every replay (a stub graph: no CUDA here)."""
+    from texocr_tpu_torch.models.graphed import GraphedGenerate
+
+    class Graph:
+        replays = 0
+
+        def replay(self):
+            Graph.replays += 1
+
+    with telemetry.deferred() as held:
+        telemetry.count("decode_attention.launches", 8)
+        telemetry.count("moe.layers", 2)
+    entry = (Graph(), held)
+    for _ in range(3):
+        GraphedGenerate._replay(entry)
+    assert Graph.replays == 3
+    assert telemetry.counters() == {"decode_attention.launches": 24, "moe.layers": 6}
+
+
 def test_a_device_counter_made_under_inference_mode_adds_and_resets_in_place():
     """A decode under ``inference_mode`` may be the first to ask for a device
     counter; ``reset`` after it, outside that mode, still zeroes the same

@@ -28,12 +28,11 @@ each chunk's replay is a ``decode.chunk`` span; every key adds its warm-up and
 capture seconds to the counter ``graphs.capture_s`` (and to ``capture_s``),
 and 1 to ``graphs.keys``. A replay
 launches the kernels without passing through their wrappers, so each graph
-keeps the counts of launches its capture made and adds them to
-``flash_attention.launches`` and ``decode_attention.launches`` when it
-replays, and the prefix decoder's ``moe_experts.launches`` and host
-counter ``moe.layers`` likewise; a capture itself launches nothing on the
-device and counts nothing. The device counter ``moe.expert_rows`` needs no
-such help: its adds are captured and replayed.
+is captured inside ``telemetry.deferred()``: the host counts its capture
+made (the kernels' launches, ``moe.layers``) are kept with the graph and
+added once per replay, and a capture itself counts nothing. The device
+counter ``moe.expert_rows`` needs no such help: its adds are captured and
+replayed.
 
 Capture follows ``torch.cuda.graphs``' rules: every region runs once
 eagerly on a side stream first (cuDNN's and cuBLAS's first calls at a shape,
@@ -61,15 +60,9 @@ from texocr_tpu_torch import telemetry
 from texocr_tpu_torch.models.attention import decode_chunks
 from texocr_tpu_torch.models.generate import check_mode, decode_state
 from texocr_tpu_torch.models.ocr_model import OCRModel
-from texocr_tpu_torch.ops import decode_attention, flash_attention, moe_experts
 
 # CUDA allows one stream capture at a time in a process.
 _CAPTURE_LOCK = threading.Lock()
-
-#: The launch counters a replay adds to: each holds an integer ``launches``.
-_COUNTERS = (flash_attention.flash_attention, decode_attention, moe_experts)
-#: The telemetry counters a replay adds to.
-_TELEMETRY = ("moe.layers",)
 
 
 class GraphedGenerate:
@@ -136,34 +129,21 @@ class GraphedGenerate:
             self.generator.set_state(rng)
 
     def _capture(self, fn):
-        """(a graph of ``fn()`` with its launch counts, what ``fn``
-        returned: tensors of the graph's pool that every replay rewrites)."""
+        """(a graph of ``fn()`` with the counts its capture held back, what
+        ``fn`` returned: tensors of the graph's pool that every replay
+        rewrites)."""
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
-        before = [c.launches for c in _COUNTERS]
-        counted = telemetry.counters()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                              capture_error_mode="thread_local"):
+        with telemetry.deferred() as counts, torch.cuda.graph(
+                graph, pool=self._pool, stream=self._stream, capture_error_mode="thread_local"):
             out = fn()
-        launches = []
-        for counter, n in zip(_COUNTERS, before):
-            launches.append(counter.launches - n)
-            counter.launches = n
-        counts = {}
-        for name in _TELEMETRY:
-            n = telemetry.counters().get(name, 0) - counted.get(name, 0)
-            if n:
-                counts[name] = n
-                telemetry.count(name, -n)
-        return (graph, launches, counts), out
+        return (graph, counts), out
 
     @staticmethod
     def _replay(entry) -> None:
-        graph, launches, counts = entry
+        graph, counts = entry
         graph.replay()
-        for counter, n in zip(_COUNTERS, launches):
-            counter.launches += n
         for name, n in counts.items():
             telemetry.count(name, n)
 

@@ -1,5 +1,5 @@
-"""Timing helpers for the port's kernels on a CUDA device, and the decode
-attention's inputs as its call sites make them.
+"""Timing helpers for the port's kernels on a CUDA device, their least times
+on an H100, and the decode attention's inputs as its call sites make them.
 
 Used by ``chip_smoke.py``, ``tools/flash_kernel_ab.py`` and the tests; the
 serving path never imports this module.
@@ -296,6 +296,22 @@ def bf16_gaps(got, want) -> dict:
     return {"share_over_1_ulp": float((bf16_ulps(got, want) > 1).float().mean()),
             "max_row_gap": float((gap / row_max).max()),
             "max_row_gap_ulps": float((gap / row_ulp).max())}
+
+
+def moe_bound_ms(tokens, touched, inter, hidden, k) -> tuple:
+    """(least ms, "bytes" or "operations") of one expert layer's two launches
+    (``ops.moe_experts.launch``) on an H100 SXM, over ``tokens`` tokens that
+    each choose ``k`` experts of width ``inter`` over ``hidden``, ``touched``
+    experts receiving rows: the tokens in, the touched experts' three weight
+    matrices, the (token, choice) rows' intermediate out and in, their
+    float32 outputs and routing weights, moved once at 3.35 TB/s, against
+    2 x rows x 3 x hidden x inter operations at 989 TFLOP/s."""
+    rows = tokens * k
+    moved = (tokens * hidden * 2 + touched * 3 * inter * hidden * 2 + 2 * rows * inter * 2
+             + rows * hidden * 4 + rows * 4)
+    t_bytes = moved / H100_BYTES_PER_S * 1e3
+    t_ops = 2.0 * rows * 3 * hidden * inter / H100_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def decode_attention_bound_ms(q, call) -> float:

@@ -22,8 +22,8 @@ encoder, the teacher-forced forward and training keep
   (``math_attention`` and the int8 split's own).
 - ``cross_attention``, ``self_attention``: the plain version for a CPU
   tensor; for a CUDA tensor the kernel, or ``ValueError`` for a call it does
-  not take. ``launches`` counts the kernel's launches (CUDA-graph replays
-  add theirs, ``models/graphed.py``).
+  not take. The telemetry counter ``decode_attention.launches`` counts the
+  kernel's launches (CUDA-graph replays add theirs, ``models/graphed.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from typing import Dict, Optional
 
 import torch
 
+from texocr_tpu_torch import telemetry
 from texocr_tpu_torch.ops.attention_core import math_attention
 
 SOURCE = "decode_attention.cu"
@@ -40,9 +41,6 @@ HEAD_DIM = 64
 MAX_KEYS = 4096  # the flash gate's limit
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PLAIN, CROSS8, SPLIT = 0, 1, 2
-
-#: Kernel launches in this process.
-launches = 0
 
 _lib = None
 
@@ -214,7 +212,6 @@ def _launch(q, scale, call: dict) -> torch.Tensor:
     """Launches the kernel for ``call`` (``cross_call``, ``self_call``) on the
     current stream into a new (B, R, H, dh) buffer, returned as its
     (B, H, R, dh) view: merging the heads back is then no copy."""
-    global launches
     if q.device.type != "cuda":
         raise ValueError(f"decode attention runs on a CUDA device, got {q.device}")
     b, h, rows, dh = q.shape
@@ -239,5 +236,5 @@ def _launch(q, scale, call: dict) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"decode attention kernel launch failed: CUDA error {err}")
-    launches += 1
+    telemetry.count("decode_attention.launches")
     return out.transpose(1, 2)

@@ -27,11 +27,11 @@ dQ, then dK and dV, in two launches of five tensor-core products' work
 
 - ``flash_attention_plain``: the same function in plain PyTorch.
 - ``flash_attention``: the plain version for a CPU tensor; for a CUDA tensor
-  it launches the kernel or raises. ``flash_attention.launches`` counts the
-  launches.
+  it launches the kernel or raises. The telemetry counter
+  ``flash_attention.launches`` counts the launches.
 - ``flash_attention_backward_plain``: the math path's VJP, dq, dk and dv.
 - ``flash_attention_backward``: the plain backward for a CPU tensor; for a
-  CUDA tensor the backward kernel or an error.
+  CUDA tensor the backward kernel or an error. The telemetry counter
   ``flash_attention_backward.launches`` counts its calls.
 - ``FlashAttentionFunction``: ``flash_attention`` under autograd, the port of
   ``flash_attention_diff``; the route of its backward is in its docstring.
@@ -57,6 +57,7 @@ from typing import Optional
 
 import torch
 
+from texocr_tpu_torch import telemetry
 from texocr_tpu_torch.ops.attention_core import math_attention
 
 MAX_HEAD_DIM = 128
@@ -223,7 +224,7 @@ def flash_attention(
 def launch(lib, q, k, v, *, scale, causal=False, kv_lens=None, lse=None) -> torch.Tensor:
     """Launches ``lib``'s forward kernel (a library from ``bind``) on CUDA
     operands that ``flash_attention`` takes, on the current stream, and counts
-    the launch in ``flash_attention.launches``; with ``lse``, the
+    the launch in the counter ``flash_attention.launches``; with ``lse``, the
     instantiation that also writes the row statistics."""
     if kv_lens is not None:
         kv_lens = kv_lens.contiguous()
@@ -245,11 +246,8 @@ def launch(lib, q, k, v, *, scale, causal=False, kv_lens=None, lse=None) -> torc
         err = lib.texocr_flash_attention_fwd_lse(*args, lse.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
-    flash_attention.launches += 1
+    telemetry.count("flash_attention.launches")
     return out
-
-
-flash_attention.launches = 0
 
 
 def flash_attention_backward_plain(q, k, v, grad_out, *, scale: float, causal: bool = False):
@@ -284,7 +282,7 @@ def flash_attention_backward(q, k, v, out, lse, grad_out, *, scale: float,
 def launch_backward(lib, q, k, v, out, lse, grad_out, *, scale, causal=False):
     """Launches ``lib``'s backward (its two kernels, dQ then dK and dV) on
     operands that ``flash_attention_backward`` takes, on the current stream,
-    and counts the call in ``flash_attention_backward.launches``."""
+    and counts the call in the counter ``flash_attention_backward.launches``."""
     b, h, nq, dh = q.shape
     delta = torch.empty(b, h, lse_rows(nq), dtype=torch.float32, device=q.device)
     # Each gradient keeps its operand's strides, as the forward's output does.
@@ -299,11 +297,8 @@ def launch_backward(lib, q, k, v, out, lse, grad_out, *, scale, causal=False):
     )
     if err != 0:
         raise RuntimeError(f"flash attention backward launch failed: CUDA error {err}")
-    flash_attention_backward.launches += 1
+    telemetry.count("flash_attention_backward.launches")
     return dq, dk, dv
-
-
-flash_attention_backward.launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -24,10 +24,11 @@ bound by operations. The design is vLLM's ``moe_align_block_size`` and
   row's routing weight, stored in float32 at the row's (token, choice)
   place; the sum over a token's choices follows in plain PyTorch.
 
-Two launches a layer, in prefill and in decode alike; ``launches`` counts
-them (CUDA-graph replays add theirs, ``models/graphed.py``). ``routed`` takes
-the plain version for CPU tensors and the kernels for CUDA tensors, or raises
-``ValueError`` for a call they do not take: nothing falls back.
+Two launches a layer, in prefill and in decode alike; the telemetry counter
+``moe_experts.launches`` counts them (CUDA-graph replays add theirs,
+``models/graphed.py``). ``routed`` takes the plain version for CPU tensors
+and the kernels for CUDA tensors, or raises ``ValueError`` for a call they
+do not take: nothing falls back.
 """
 
 from __future__ import annotations
@@ -37,8 +38,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-#: Kernel launches in this process.
-launches = 0
+from texocr_tpu_torch import telemetry
 
 _kernels = None
 
@@ -234,7 +234,6 @@ def launch(x: torch.Tensor, topk_weights: torch.Tensor, w_gate: torch.Tensor,
            w_up: torch.Tensor, w_down: torch.Tensor, aligned: tuple, tile: dict) -> torch.Tensor:
     """The two kernels over rows ``align`` sorted: each (token, choice) row's
     weighted expert output, (T * k, D) float32."""
-    global launches
     triton, gate_up, down = _build()
     t, k = topk_weights.shape
     inter, hidden = w_gate.shape[1], x.shape[1]
@@ -254,5 +253,5 @@ def launch(x: torch.Tensor, topk_weights: torch.Tensor, w_gate: torch.Tensor,
         h, w_down, out, topk_weights, sorted_ids, block_experts, padded, t * k, hidden, inter,
         h.stride(0), w_down.stride(0), w_down.stride(1), out.stride(0),
         BM=bm, BN=bn, BK=bk, num_warps=warps, num_stages=stages)
-    launches += 2
+    telemetry.count("moe_experts.launches", 2)
     return out

@@ -9,7 +9,9 @@
   Chrome trace (``chrome://tracing``, Perfetto).
 - ``span``: a named interval at a layer's boundary, recorded only while a
   ``torch.profiler`` profile runs on the calling thread; ``count``: an
-  always-on counter. ``spans``, ``counters`` and ``reset`` are for readers.
+  always-on counter (the kernels' launches among them); ``deferred``: holds
+  one thread's counts back, for a CUDA graph's capture to replay them.
+  ``spans``, ``counters`` and ``reset`` are for readers.
 
 Spans are gated by the profiler itself, so they cost one branch when no
 profile runs and need no switch of their own. A recorded span is a
@@ -24,6 +26,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import threading
 import time
 from typing import IO, Dict, List, Optional, Union
 
@@ -89,6 +92,13 @@ _SPANS: List["Span"] = []
 _COUNTERS: Dict[str, Union[int, float]] = {}
 _DEVICE_COUNTERS: Dict[str, torch.Tensor] = {}
 _NOOP = contextlib.nullcontext()     # what ``span`` returns when no profile runs
+
+
+class _Held(threading.local):
+    counts: Optional[Dict[str, Union[int, float]]] = None   # set inside ``deferred``
+
+
+_HELD = _Held()
 _profiling = torch._C._autograd._profiler_enabled   # thread-local, about 0.2 us
 
 
@@ -151,14 +161,32 @@ def span(name: str, *, device: Optional[Union[torch.device, torch.Tensor]] = Non
 
 
 def count(name: str, value: Union[int, float] = 1) -> None:
-    """Adds ``value`` to the process-wide counter ``name``. Always on. An
-    add is one read and one write under the interpreter lock: two threads
-    adding to one name at the same instant can lose one add, so each of the
-    port's counters has one writing thread (the batcher's worker; captures
-    hold the capture lock)."""
+    """Adds ``value`` to the process-wide counter ``name``, or inside
+    ``deferred`` on this thread to the dict it yields. Always on. An add is
+    one read and one write under the interpreter lock: two threads adding to
+    one name at the same instant can lose one add, so each of the port's
+    counters has one writing thread at a time (the batcher's worker, or the
+    thread that trains; a capture counts into its own dict)."""
     if not isinstance(value, (int, float)):
         raise TypeError(f"counter {name!r}: {type(value).__name__} is not an int or float")
-    _COUNTERS[name] = _COUNTERS.get(name, 0) + value
+    counts = _HELD.counts
+    if counts is None:
+        counts = _COUNTERS
+    counts[name] = counts.get(name, 0) + value
+
+
+@contextlib.contextmanager
+def deferred():
+    """Yields a dict into which every ``count`` made on this thread goes
+    while the block runs, in place of the process counters; other threads
+    count as before. A CUDA graph is captured inside it: its wrappers run
+    once, at the capture, and the graph's owner adds the dict once per
+    replay. Nested, the innermost block holds the counts."""
+    outer, _HELD.counts = _HELD.counts, {}
+    try:
+        yield _HELD.counts
+    finally:
+        _HELD.counts = outer
 
 
 def device_counter(name: str, shape: tuple, device) -> torch.Tensor:
